@@ -2,8 +2,9 @@
 
 from ray_tpu_torch.models.llama import (
     LlamaConfig, LoraConfig, init_llama, init_lora, llama_forward,
-    llama_hidden, lora_from_jax, params_from_jax)
+    llama_hidden, llama_lora_loss, llama_loss, lora_from_jax,
+    params_from_jax)
 
 __all__ = ["LlamaConfig", "LoraConfig", "init_llama", "init_lora",
-           "llama_forward", "llama_hidden", "lora_from_jax",
-           "params_from_jax"]
+           "llama_forward", "llama_hidden", "llama_lora_loss", "llama_loss",
+           "lora_from_jax", "params_from_jax"]

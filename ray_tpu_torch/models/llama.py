@@ -1,4 +1,5 @@
-"""Llama-2/3-family decoder-only transformer in PyTorch, forward only.
+"""Llama-2/3-family decoder-only transformer in PyTorch: forward, remat and
+the training loss.
 
 Port of ``ray_tpu/models/llama.py``. It keeps the reference's functional
 shape so that the two can be held against each other: parameters are a
@@ -6,23 +7,26 @@ dictionary of tensors in the same layer-stacked layout (a leading
 ``num_layers`` dim), the forward is a function of (params, tokens), and each
 weight is cast to the activation type at each product (``.to(cfg.dtype)``,
 the reference's ``.astype(cfg.dtype)``), LoRA deltas included. The
-reference's ``lax.scan`` over layers is a Python loop here. Attention goes
-through ``ray_tpu_torch.ops.attention`` (the CUDA flash kernel on the card);
-the projections and the MLP are ``torch.einsum``, as the reference leaves
-them to XLA.
+reference's ``lax.scan`` over layers is a Python loop here, and its
+``jax.checkpoint`` per layer is ``torch.utils.checkpoint``. Attention goes
+through ``ray_tpu_torch.ops.attention`` (the CUDA flash kernels on the card,
+forward and backward); the projections and the MLP are ``torch.einsum``, as
+the reference leaves them to XLA.
 
-Not ported yet: ``llama_decode`` (kv cache), remat, the loss
-(``llama_loss``, ``_chunked_ce``), ``merge_lora``, ``llama_logical_axes``
-and the ring-attention layer (``attn_impl="ring_seq"``).
-"""
+Not ported yet: ``llama_decode`` (kv cache), ``merge_lora``,
+``llama_logical_axes`` and the ring-attention layer
+(``attn_impl="ring_seq"``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ray_tpu_torch.ops.attention import attention
 
@@ -41,7 +45,12 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16      # activation dtype
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True             # checkpoint each layer (memory ↔ FLOPs)
+    remat_policy: str = "dots"     # dots | full | mixed:K
     attn_impl: str = "auto"                  # auto | flash | reference
+    loss_chunk: int = 0            # >0: lm-head CE in seq chunks of this size
+    #   (peak logits memory B*chunk*V instead of B*S*V; the backward
+    #    recomputes each chunk's logits under checkpoint)
 
     @staticmethod
     def llama2_7b() -> "LlamaConfig":
@@ -51,13 +60,13 @@ class LlamaConfig:
     def tiny(vocab_size: int = 256) -> "LlamaConfig":
         return LlamaConfig(vocab_size=vocab_size, hidden=128, mlp_hidden=352,
                            num_layers=2, num_heads=4, num_kv_heads=2,
-                           head_dim=32, max_seq_len=256)
+                           head_dim=32, max_seq_len=256, remat=False)
 
     @staticmethod
     def debug_1l() -> "LlamaConfig":
         return LlamaConfig(vocab_size=128, hidden=64, mlp_hidden=176,
                            num_layers=1, num_heads=2, num_kv_heads=1,
-                           head_dim=32, max_seq_len=128)
+                           head_dim=32, max_seq_len=128, remat=False)
 
     def flops_per_token(self, seq_len: Optional[int] = None) -> float:
         """Approximate fwd+bwd FLOPs/token: 6*N, plus the attention
@@ -290,6 +299,43 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
             + _ld("w_down", act, "bsm,mr->bsr", "bsr,rh->bsh"))
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep the
+    outputs of products without a batch dimension, recompute the rest.
+    ``torch.einsum`` lowers every product to ``aten.bmm``, the projections'
+    ("bsh,hnd->bsnd" and the LoRA factors) with a batch of 1 and the
+    reference attention's ("bqhd,bkhd->bhqk") with a batch of B*H, so a
+    product is saved when its batch is 1 (which also saves attention's at
+    B*H == 1, where the batch is not there to tell them apart)."""
+    if op is torch.ops.aten.mm.default or (
+            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts,
+                                  _dots_policy)
+
+
+def _layer_policies(cfg: LlamaConfig):
+    """Per layer: None (no remat), "dots" or "full". Remat applies only while
+    grad is enabled: the serving path (``inference_mode``) runs the layers
+    as they are."""
+    n = cfg.num_layers
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return [None] * n
+    pol = cfg.remat_policy
+    if pol.startswith("mixed:"):
+        # "mixed:K": the first K layers keep their products, the rest
+        # recompute everything
+        k = max(0, min(int(pol.split(":", 1)[1]), n))
+        return ["dots"] * k + ["full"] * (n - k)
+    if pol not in ("dots", "full"):
+        raise ValueError(f"remat_policy {pol!r}: expected "
+                         "'dots'|'full'|'mixed:K'")
+    return [pol] * n
+
+
 def llama_hidden(
     params: Dict[str, Any],
     tokens: torch.Tensor,
@@ -300,8 +346,11 @@ def llama_hidden(
     lora_cfg: Optional[LoraConfig] = None,
 ) -> torch.Tensor:
     """tokens [B, S] int → final hidden states [B, S, H] (activation
-    dtype, post final-norm). A Python loop over the stacked layers; LoRA
-    adapters (if given) are sliced alongside the base."""
+    dtype, post final-norm). A Python loop over the stacked layers, each
+    under ``checkpoint`` when ``cfg.remat`` and grad is enabled ("full":
+    recompute everything in the backward; "dots": keep the products without
+    a batch dim; "mixed:K": "dots" for the first K layers, "full" after);
+    LoRA adapters (if given) are sliced alongside the base."""
     B, S = tokens.shape
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
@@ -309,11 +358,18 @@ def llama_hidden(
     scale = lora_cfg.scale if lora_cfg is not None else 0.0
     layers = params["layers"]
     lo_layers = lora["layers"] if lora is not None else {}
-    for i in range(cfg.num_layers):
+    for i, policy in enumerate(_layer_policies(cfg)):
         lp = {name: w[i] for name, w in layers.items()}
         lo = {name: {"a": ab["a"][i], "b": ab["b"][i]}
               for name, ab in lo_layers.items()}
-        x = _layer(cfg, x, lp, positions, lora=lo, lora_scale=scale)
+        if policy is None:
+            x = _layer(cfg, x, lp, positions, lo, scale)
+        elif policy == "full":
+            x = checkpoint(_layer, cfg, x, lp, positions, lo, scale,
+                           use_reentrant=False)
+        else:
+            x = checkpoint(_layer, cfg, x, lp, positions, lo, scale,
+                           use_reentrant=False, context_fn=_DOTS_CONTEXT)
     return _rms_norm(x, params["final_norm"], cfg.rms_eps)
 
 
@@ -331,3 +387,77 @@ def llama_forward(
                      lora=lora, lora_cfg=lora_cfg)
     logits = torch.einsum("bsh,hv->bsv", x, params["lm_head"].to(cfg.dtype))
     return logits.float()
+
+
+def _nll_from_logits(logits: torch.Tensor,
+                     targets: torch.Tensor) -> torch.Tensor:
+    """-log p(target) per position, in fp32. The target logit is taken with
+    ``gather``: the JAX package avoids ``take_along_axis`` there only
+    because on a TPU its backward is a serialized scatter, and the value is
+    the same."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    target_logit = logits.gather(-1, targets[..., None].long()).squeeze(-1)
+    return lse - target_logit
+
+
+def _ce_chunk(x, lm_head, targets, mask, dtype):
+    logits = torch.einsum("bch,hv->bcv", x, lm_head.to(dtype))
+    nll = _nll_from_logits(logits, targets)
+    return (nll * mask).sum(), mask.sum()
+
+
+def _chunked_ce(x, lm_head, targets, mask, chunk, dtype):
+    """Cross-entropy over seq chunks: the logits of one chunk at a time,
+    each chunk under ``checkpoint`` (while grad is enabled) so that its
+    logits are recomputed in the backward and peak memory is B*chunk*V
+    instead of B*S*V."""
+    B, S, _ = x.shape
+    if S % chunk:
+        raise ValueError(f"seq {S} not divisible by loss_chunk {chunk}")
+    mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
+            else mask.to(torch.float32))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        args = (x[:, c0:c0 + chunk], lm_head, targets[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk], dtype)
+        if torch.is_grad_enabled():
+            s, n = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            s, n = _ce_chunk(*args)
+        tot, cnt = tot + s, cnt + n
+    return tot / cnt.clamp_min(1.0)
+
+
+def llama_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
+               cfg: LlamaConfig, *,
+               lora: Optional[Dict[str, Any]] = None,
+               lora_cfg: Optional[LoraConfig] = None) -> torch.Tensor:
+    """Next-token cross-entropy (fp32 scalar); batch = {tokens [B,S]} or
+    {inputs, targets [B,S]} with an optional {mask [B,S]}."""
+    if "targets" in batch:
+        inputs, targets = batch["inputs"], batch["targets"]
+        mask = batch.get("mask")
+    else:
+        inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        mask = None
+    x = llama_hidden(params, inputs, cfg, lora=lora, lora_cfg=lora_cfg)
+    if cfg.loss_chunk:
+        return _chunked_ce(x, params["lm_head"], targets, mask,
+                           cfg.loss_chunk, cfg.dtype)
+    logits = torch.einsum("bsh,hv->bsv", x, params["lm_head"].to(cfg.dtype))
+    nll = _nll_from_logits(logits, targets)
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def llama_lora_loss(base_params: Dict[str, Any], lora: Dict[str, Any],
+                    batch: Dict[str, torch.Tensor], cfg: LlamaConfig,
+                    lcfg: LoraConfig) -> torch.Tensor:
+    """Loss as a function of the adapters only, the signature
+    ``make_train_step`` wants for frozen-base fine-tuning: grads flow
+    through the frozen layers into A and B, and no base dW is formed."""
+    return llama_loss(base_params, batch, cfg, lora=lora, lora_cfg=lcfg)

@@ -1,4 +1,5 @@
-"""Attention dispatcher: plain reference path and the CUDA flash kernel.
+"""Attention dispatcher: plain reference path and the CUDA flash kernels
+(forward, and backward under autograd).
 
 Port of ``ray_tpu/ops/attention.py``. GQA layout everywhere: q [B, S, H, D],
 k/v [B, S_kv, KVH, D] with H % KVH == 0. Returns [B, S, H, D] in q.dtype.

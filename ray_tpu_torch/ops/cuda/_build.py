@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` compiles, on its own, into a shared library with a
 plain C interface, ``build/<name>-<hash>.so``, where the hash covers the
-source and the compiler flags. A library is built at its first use (or by
-:func:`build_all`, which starts one ``nvcc`` per source, all together) and
-reused while its source is unchanged. Importing this module needs no
+source, the shared headers (``csrc/*.cuh``) and the compiler flags. A
+library is built at its first use (or by :func:`build_all`, which starts
+one ``nvcc`` per source, all together) and reused while its sources are
+unchanged. Importing this module needs no
 ``nvcc``; a build without one raises.
 """
 
@@ -46,7 +47,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Tuple[Path, Path]:
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(SRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return src, BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -34,67 +34,14 @@
 // B * H * 2 blocks, about two per SM, with the diagonal tiles doing half
 // the work of the others.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // q rows per block
-constexpr int BK = 64;          // kv rows per tile
-constexpr int THREADS = 256;
-constexpr int PS = BK + 16;     // row stride of the probability tile
-constexpr float NEG_INF = -1e30f;
+using namespace flash;
 
-__device__ __forceinline__ void load4(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-}
-
-// Copy a 64 x D tile, contiguous along D with rows row_stride apart, into
-// shared memory as fp32 with row stride D + 1.
-template <typename T, int D>
-__device__ __forceinline__ void stage_tile(float* dst, const T* src,
-                                           int64_t row_stride) {
-    constexpr int CPR = D / 4;  // 4-element chunks per row
-    for (int c = threadIdx.x; c < BQ * CPR; c += THREADS) {
-        const int r = c / CPR;
-        const int col = (c % CPR) * 4;
-        float v[4];
-        load4(src + r * row_stride + col, v);
-        float* d = dst + r * (D + 1) + col;
-        d[0] = v[0]; d[1] = v[1]; d[2] = v[2]; d[3] = v[3];
-    }
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-    return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-    return v;
-}
+constexpr int BQ = TILE;        // q rows per block
+constexpr int BK = TILE;        // kv rows per tile
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS, 2) flash_fwd_kernel(
@@ -141,22 +88,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_kernel(
         __syncthreads();
 
         float s[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-            float qv[4], kv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) kv[j] = kvs[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        }
+        tile_dot<D>(s, qs, kvs, ty, tx);
 
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
@@ -187,19 +119,7 @@ __global__ void __launch_bounds__(THREADS, 2) flash_fwd_kernel(
         stage_tile<T, D>(kvs, vb + k0 * v_ss, v_ss);
         __syncthreads();  // V and P are visible
 
-#pragma unroll 4
-        for (int kk = 0; kk < BK; ++kk) {
-            float pv[4], vv[NJ];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) pv[i] = ps[(ty + 16 * i) * PS + kk];
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) vv[j] = kvs[kk * (D + 1) + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-                for (int j = 0; j < NJ; ++j)
-                    acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-        }
+        tile_accumulate<D>(acc, ps, kvs, ty, tx);
     }
 
 #pragma unroll

@@ -141,10 +141,15 @@ def test_flash_rejects_what_the_kernel_cannot_take():
     q, k, v = (torch.zeros(1, 2, 96, 32) for _ in range(3))
     with pytest.raises(ValueError, match="divide by 128"):
         tfa.flash_attention_fwd(q, k, v, True)
-    q, k, v = (torch.zeros(1, 2, 128, 32, requires_grad=True)
+    # inputs that require grad are taken: the gradient runs on the CPU
+    # through the backward's plain twins, launching no kernel
+    q, k, v = (torch.zeros(1, 128, 2, 32, requires_grad=True)
                for _ in range(3))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention_fwd(q, k, v, True)
+    before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    tfa.flash_attention(q, k, v, True).sum().backward()
+    assert all(t.grad is not None and t.grad.shape == t.shape
+               and bool(torch.isfinite(t.grad).all()) for t in (q, k, v))
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == before
     q, k, v = (torch.zeros(1, 2, 128, 32, device="meta") for _ in range(3))
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         tfa.flash_attention_fwd(q, k, v, True)

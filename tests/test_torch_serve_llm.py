@@ -160,6 +160,7 @@ def test_package_imports_no_jax_and_no_ray_tpu():
         "import sys\n"
         "import ray_tpu_torch, ray_tpu_torch.serve.llm\n"
         "import ray_tpu_torch.ops.cuda.flash_attention\n"
+        "import ray_tpu_torch.parallel.train_step\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu')]\n"
         "assert not bad, bad\n")
