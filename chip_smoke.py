@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the exit code is not 0:
 
 1. Report the machine: ``nvidia-smi`` name and power limit, torch and CUDA.
 2. Build every CUDA kernel of the package from its sources with nvcc
-   (sm_90a), one nvcc per source, all started together.
+   (sm_90a), one nvcc per source, all started together, and count the
+   tensor-core instructions (HGMMA, HMMA) in each library's SASS: the bf16
+   forward (K1) and dk/dv (K3) must have some.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and a few more: K1 (forward) at the serving shapes
    and the training shape, K2 (dq) and K3 (dk/dv) at the training shape,
@@ -42,6 +44,8 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -79,6 +83,7 @@ KERNEL_SHAPES = [
     (2, 32, 8, 512, 128, True, "bfloat16"),
     (2, 32, 32, 256, 128, False, "bfloat16"),
     (2, 16, 4, 256, 64, True, "float32"),
+    (2, 16, 4, 256, 64, True, "bfloat16"),
     (1, 32, 32, 2048, 128, True, "bfloat16"),  # the training path's
 ]
 # K2 and K3: the training path's shape first (the 7B LoRA step at B=1,
@@ -88,24 +93,31 @@ BWD_SHAPES = [
     (1, 32, 8, 1024, 128, True, "bfloat16"),
     (2, 32, 32, 256, 128, False, "bfloat16"),
     (2, 16, 4, 256, 64, True, "float32"),
+    (2, 16, 4, 256, 64, True, "bfloat16"),
 ]
 # dq, dk, dv against the plain version, as the largest error relative to
-# max|plain|: both compute in fp32 from the same inputs and differ in
-# summation order (~1e-6 relative); in bf16 the output is then rounded
-# once, one bf16 step of 2**-8 relative, and 2e-2 leaves room for the sums
-# of up to 2048 terms and the group sum of 4 heads. fp32: summation order
-# only.
+# max|plain|. fp32: both compute in fp32 from the same inputs and differ in
+# summation order only (~1e-6 relative). bf16: the plain version computes in
+# fp32; K2 does too, and K3 (on the tensor cores) rounds P^T and dS^T to bf16
+# before its two products, 2**-9 relative per term and random in sign over
+# up to 2048 terms times the group's 4 heads, so the sums' relative error
+# stays near 2**-9 / sqrt(terms) of their size; the output is then rounded
+# once, one bf16 step of 2**-8 relative. 2e-2 leaves room for both.
 TOL_GRAD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
-# o: kernel and plain version both compute in fp32 from the same inputs and
-# differ only in summation order (~1e-6); in bf16 o is then rounded once,
-# and one bf16 step at |o| < 4 is at most 2**-6 = 1.6e-2. lse is fp32 on
-# both sides (values ~5, sums of up to 512 terms in another order).
+# o: in fp32 kernel and plain version differ only in summation order
+# (~1e-6). In bf16 the kernel rounds P to bf16 before the PV product (2**-9
+# relative per term, random in sign, so o moves by a small part of 2**-9
+# |v|), and o is then rounded once: one bf16 step at |o| < 4 is at most
+# 2**-6 = 1.6e-2. lse is fp32 on both sides and sums the unrounded P
+# (values ~5, sums of up to 2048 terms in another order).
 TOL_O = {"bfloat16": 2e-2, "float32": 1e-4}
 TOL_LSE = 1e-3
-# 2-layer 7B-width forward, flash kernel vs plain reference attention: the
-# reference rounds the probabilities to bf16 before the PV product (as the
-# JAX reference does) and the kernel does not, so the logits differ at bf16
-# rounding level (2**-8 relative per element, partly averaging out)
+# 2-layer 7B-width forward, flash kernel vs plain reference attention: both
+# round the probabilities to bf16 before the PV product (the reference as
+# the JAX reference does, the kernel as the A operand of its tensor-core
+# product), but from statistics summed in another order, so the logits
+# differ at bf16 rounding level (2**-8 relative per element, partly
+# averaging out)
 TOL_SLICE_REL = 2e-2
 N_TIMED = 30
 # the training path: bench.py's Llama-2-7B LoRA rung on one card
@@ -188,14 +200,34 @@ def phase_machine():
     return card
 
 
+# libraries whose bf16 route must run on the tensor cores
+TENSOR_CORE_LIBS = ("flash_attention_fwd", "flash_attention_dkv")
+
+
+def tensor_core_ops(lib_path: str) -> int:
+    """Count of tensor-core instructions (HGMMA, HMMA) in a library's SASS,
+    read with cuobjdump from the nvcc that built it."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    return len(re.findall(r"\b(?:HGMMA|HMMA)\b", sass))
+
+
 def phase_build():
     t0 = time.perf_counter()
     built = _build.build_all()
     for name, (secs, text) in built.items():
         log(f"[2] built {name} in {secs:.1f} s")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 log(f"[2]   {line.strip()}")
+    for name in built:
+        n = tensor_core_ops(str(_build._target(name)[1]))
+        log(f"[2] {name}: {n} tensor-core instructions (HGMMA, HMMA) in "
+            f"its SASS")
+        if name in TENSOR_CORE_LIBS and n == 0:
+            raise AssertionError(f"{name} has no tensor-core instruction")
     log(f"[2] build total {time.perf_counter() - t0:.1f} s")
 
 
@@ -634,7 +666,9 @@ def main() -> int:
     phase_grad_check(gen)
     phase_train_profile(train)
 
-    head, tb = records[0], bwd[0]  # the serving path's B=4, S=128; training
+    # K1 at the serving path's B=4, S=128 (its headline numbers) and at the
+    # training path's B=1, S=2048; K2 and K3 at the training shape
+    head, k1t, tb = records[0], records[-1], bwd[0]
     k1_train = train["launches"][0]
     kernels = [{
         "name": "flash_attention_fwd",
@@ -651,6 +685,9 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shape": head["shape"],
+        "train_shape": {key: k1t[key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
     }]
     for kern, name, line, n in (("dq", "flash_attention_dq", 275,
                                  train["launches"][1]),

@@ -10,6 +10,13 @@ three Pallas kernels:
 - K3 (``csrc/flash_attention_dkv.cu``, ``_dkv_kernel``): ``dk`` and ``dv``,
   each summed over its kv head's query group.
 
+Each kernel's source holds two routes, chosen by the input type: bf16 runs
+on the tensor cores (``wgmma``, asynchronous tile loads; K1 and K3) or, for
+K2, on CUDA cores in fp32; fp32 runs on CUDA cores in fp32 for all three, so
+that fp32 means fp32 (no TF32). The bf16 tensor-core kernels round P (and,
+in K3, dS) to bf16 before the second product, as the JAX package's
+reference attention rounds P; the plain twins do not.
+
 Each wrapper (:func:`flash_attention_fwd`, :func:`flash_attention_dq`,
 :func:`flash_attention_dkv`) launches its kernel for CUDA tensors and uses
 its plain PyTorch twin only for tensors on the CPU; there is no fallback from
@@ -156,21 +163,29 @@ def _check_bwd(q, k, v, do, lse, delta) -> None:
                              f"{tuple(t.shape)} {t.dtype}")
 
 
+def _step(t: torch.Tensor) -> int:
+    """Elements per 16 bytes: the kernels' unit of alignment. The bf16
+    kernels copy 16-byte chunks into shared memory asynchronously; the fp32
+    kernels read 4 elements at a time."""
+    return 16 // t.element_size()
+
+
 def _kernel_args(like, **tensors):
     """Check what every kernel takes (``like`` is q) and return the strides
-    of ``tensors`` (batch, head, seq of each) in order. The kernels read and
-    write 4 elements at a time (8 bytes in bf16, 16 in fp32)."""
+    of ``tensors`` (batch, head, seq of each) in order: pointers 16-byte
+    aligned and strides divisible by 16 bytes' worth of elements (8 in bf16,
+    4 in fp32)."""
     if like.dtype not in _DTYPES:
         raise ValueError(f"kernel takes float32 or bfloat16, not "
                          f"{like.dtype}")
     if like.shape[3] not in _HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim 64 or 128, not "
                          f"{like.shape[3]}")
-    align = 4 * like.element_size()
+    n = _step(like)
     for name, t in tensors.items():
-        if t.data_ptr() % align or any(s % 4 for s in t.stride()[:3]):
-            raise ValueError(f"{name} must be {align}-byte aligned with "
-                             f"strides divisible by 4, got {t.stride()}")
+        if t.data_ptr() % 16 or any(s % n for s in t.stride()[:3]):
+            raise ValueError(f"{name} must be 16-byte aligned with strides "
+                             f"divisible by {n}, got {t.stride()}")
     return [s for t in tensors.values() for s in t.stride()[:3]]
 
 
@@ -180,12 +195,20 @@ def _last_contiguous(t: torch.Tensor) -> torch.Tensor:
 
 def _readable_do(do: torch.Tensor) -> torch.Tensor:
     """dO as autograd hands it over, read in place where the kernels can
-    (contiguous last dim, 4-element strides and alignment), else copied:
-    its layout is autograd's choice, not the caller's."""
-    if (do.stride(-1) == 1 and not any(s % 4 for s in do.stride()[:3])
-            and do.data_ptr() % (4 * do.element_size()) == 0):
+    (contiguous last dim, 16-byte alignment, strides divisible by 16 bytes'
+    worth of elements), else copied: its layout is autograd's choice, not
+    the caller's."""
+    if (do.stride(-1) == 1 and do.data_ptr() % 16 == 0
+            and not any(s % _step(do) for s in do.stride()[:3])):
         return do
-    return do.contiguous()
+    return do.clone(memory_format=torch.contiguous_format)
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """lse or δ as the kernels read them: contiguous and 16-byte aligned
+    (the bf16 dk/dv kernel copies them in 16-byte chunks), else copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -240,7 +263,7 @@ def _launch_dq(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     global dq_launches
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
     do = _readable_do(do)
-    lse, delta = lse.contiguous(), delta.contiguous()
+    lse, delta = _rows(lse), _rows(delta)
     dq = torch.empty_like(q)
     strides = _kernel_args(q, q=q, k=k, v=v, do=do, dq=dq)
     lib = _lib("flash_attention_dq", 7, 15)
@@ -259,7 +282,7 @@ def _launch_dkv(q, k, v, do, lse, delta, causal: bool
     global dkv_launches
     q, k, v = (_last_contiguous(t) for t in (q, k, v))
     do = _readable_do(do)
-    lse, delta = lse.contiguous(), delta.contiguous()
+    lse, delta = _rows(lse), _rows(delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     strides = _kernel_args(q, q=q, k=k, v=v, do=do, dk=dk, dv=dv)
     lib = _lib("flash_attention_dkv", 8, 18)
