@@ -9,7 +9,7 @@ Phases, in order; any failure raises and the exit code is not 0:
 2. Build every CUDA kernel of the package from its sources with nvcc
    (sm_90a), one nvcc per source, all started together, and count the
    tensor-core instructions (HGMMA, HMMA) in each library's SASS: the bf16
-   forward (K1) and dk/dv (K3) must have some.
+   forward (K1), dq (K2) and dk/dv (K3) must each have some.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and a few more: K1 (forward) at the serving shapes
    and the training shape, K2 (dq) and K3 (dk/dv) at the training shape,
@@ -98,11 +98,12 @@ BWD_SHAPES = [
 # dq, dk, dv against the plain version, as the largest error relative to
 # max|plain|. fp32: both compute in fp32 from the same inputs and differ in
 # summation order only (~1e-6 relative). bf16: the plain version computes in
-# fp32; K2 does too, and K3 (on the tensor cores) rounds P^T and dS^T to bf16
-# before its two products, 2**-9 relative per term and random in sign over
-# up to 2048 terms times the group's 4 heads, so the sums' relative error
-# stays near 2**-9 / sqrt(terms) of their size; the output is then rounded
-# once, one bf16 step of 2**-8 relative. 2e-2 leaves room for both.
+# fp32; K2 and K3 (on the tensor cores) round dS (K2) and P^T, dS^T (K3) to
+# bf16 before their accumulating products, 2**-9 relative per term and
+# random in sign over up to 2048 terms (times the group's 4 heads in K3), so
+# the sums' relative error stays near 2**-9 / sqrt(terms) of their size; the
+# output is then rounded once, one bf16 step of 2**-8 relative. 2e-2 leaves
+# room for both.
 TOL_GRAD_REL = {"bfloat16": 2e-2, "float32": 1e-4}
 # o: in fp32 kernel and plain version differ only in summation order
 # (~1e-6). In bf16 the kernel rounds P to bf16 before the PV product (2**-9
@@ -201,7 +202,8 @@ def phase_machine():
 
 
 # libraries whose bf16 route must run on the tensor cores
-TENSOR_CORE_LIBS = ("flash_attention_fwd", "flash_attention_dkv")
+TENSOR_CORE_LIBS = ("flash_attention_fwd", "flash_attention_dq",
+                    "flash_attention_dkv")
 
 
 def tensor_core_ops(lib_path: str) -> int:

@@ -1,14 +1,14 @@
-// Helpers shared by the flash-attention kernels (forward, dq, dk/dv).
+// Helpers shared by the fp32 flash-attention kernels (forward, dq, dk/dv),
+// which run on CUDA cores; the bf16 kernels are built from sm90.cuh.
 //
-// Every kernel stages 64-row tiles of [*, D] operands in shared memory as
-// fp32 with a row stride of D + 1 (odd, so a column walk across rows hits
+// Every fp32 kernel stages 64-row tiles of [*, D] operands in shared memory
+// with a row stride of D + 1 (odd, so a column walk across rows hits
 // distinct banks), and gives thread (ty, tx) = (tid / 16, tid % 16) of a
 // 256-thread block the 4 x 4 tile entries (ty + 16 i, tx + 16 j) of a
 // 64 x 64 product.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,20 +24,7 @@ __device__ __forceinline__ void load4(const float* p, float* out) {
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    out[0] = lo.x; out[1] = lo.y; out[2] = hi.x; out[3] = hi.y;
-}
-
 __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16(v);
-}
 
 // Copy a 64 x D tile, contiguous along D with rows row_stride apart, into
 // shared memory as fp32 with row stride D + 1.

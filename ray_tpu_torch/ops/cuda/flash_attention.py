@@ -11,11 +11,11 @@ three Pallas kernels:
   each summed over its kv head's query group.
 
 Each kernel's source holds two routes, chosen by the input type: bf16 runs
-on the tensor cores (``wgmma``, asynchronous tile loads; K1 and K3) or, for
-K2, on CUDA cores in fp32; fp32 runs on CUDA cores in fp32 for all three, so
-that fp32 means fp32 (no TF32). The bf16 tensor-core kernels round P (and,
-in K3, dS) to bf16 before the second product, as the JAX package's
-reference attention rounds P; the plain twins do not.
+on the tensor cores (``wgmma``, asynchronous tile loads) for all three; fp32
+runs on CUDA cores in fp32 for all three, so that fp32 means fp32 (no TF32).
+The bf16 kernels round to bf16 what feeds their last products: P in K1 (as
+the JAX package's reference attention rounds P), dS in K2, Pᵀ and dSᵀ in
+K3; the plain twins do not.
 
 Each wrapper (:func:`flash_attention_fwd`, :func:`flash_attention_dq`,
 :func:`flash_attention_dkv`) launches its kernel for CUDA tensors and uses

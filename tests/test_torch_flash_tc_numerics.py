@@ -1,14 +1,15 @@
 """The bf16 tensor-core kernels' numerics and the wrappers' alignment rule,
 on the CPU.
 
-On the card the bf16 forward (K1) and dk/dv (K3) kernels run their products
-on the tensor cores, which take bf16 operands: the forward rounds P to bf16
-before the PV product, and dk/dv rounds Pᵀ and dSᵀ before its two products.
-The kernels cannot run here, so a test-only emulation makes the same
-roundings, tile by tile where the kernel works tile by tile, and is held
-against the Pallas ``_flash_fwd`` / ``_flash_bwd`` (interpret mode) at the
-tolerances ``chip_smoke.py`` holds the kernels to. Inputs are drawn with
-numpy from a seed and given to both packages.
+On the card the bf16 forward (K1), dq (K2) and dk/dv (K3) kernels run their
+products on the tensor cores, which take bf16 operands: the forward rounds P
+to bf16 before the PV product, dq rounds the unscaled dS = P(dP − δ) before
+dS K (and scales the fp32 sum once, at the store), and dk/dv rounds Pᵀ and
+dSᵀ before its two products. The kernels cannot run here, so a test-only
+emulation makes the same roundings, tile by tile where the kernel works
+tile by tile, and is held against the Pallas ``_flash_fwd`` / ``_flash_bwd``
+(interpret mode) at the tolerances ``chip_smoke.py`` holds the kernels to.
+Inputs are drawn with numpy from a seed and given to both packages.
 
 The wrappers' rule: pointers 16-byte aligned and (batch, head, seq) strides
 divisible by 16 bytes' worth of elements (8 in bf16, 4 in fp32).
@@ -95,6 +96,31 @@ def _dkv_emulated(q, k, v, do, lse, delta, causal):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _dq_emulated(q, k, v, do, lse, delta, causal):
+    """The bf16 dq kernel's arithmetic in fp32 torch: P from fp32 scores,
+    dS = P(dP − δ) left unscaled and rounded to bf16 before dq += dS K, and
+    the fp32 sum scaled once as dq goes out."""
+    s, kf, vf = tfa._scores(q, k, v, causal)
+    p = torch.exp(s - lse[..., None])
+    dp = do.float() @ vf.transpose(-1, -2)
+    ds = p * (dp - delta[..., None])
+    return (ds.bfloat16().float() @ kf * q.shape[3] ** -0.5).to(q.dtype)
+
+
+def _pallas_bwd(q, k, v, do, causal):
+    """Pallas ``_flash_fwd`` then ``_flash_bwd`` (interpret mode) on bf16
+    copies of the arrays → ((dq, dk, dv) as jax arrays, and o, lse, δ as the
+    torch kernels take them)."""
+    jq, jk, jv, jdo = _jax_bf16(q, k, v, do)
+    jo, jlse = _flash_fwd(jq, jk, jv, causal=causal, block_q=512,
+                          block_k=512)
+    grads = _flash_bwd(jq, jk, jv, jo, jlse, jdo, causal=causal,
+                       block_q=512, block_k=512)
+    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).bfloat16()
+    lse = torch.from_numpy(np.asarray(jlse)[..., 0].copy())
+    return grads, o, lse
+
+
 def _jax_bf16(*arrays):
     return [jnp.asarray(a, jnp.bfloat16) for a in arrays]
 
@@ -128,14 +154,8 @@ def test_dkv_rounding_fits_the_pallas_kernel(H, KVH, causal):
     B, S, D = 1, 256, 64
     q, k, v, do = _bf16(1, (B, H, S, D), (B, KVH, S, D), (B, KVH, S, D),
                         (B, H, S, D))
-    jq, jk, jv, jdo = _jax_bf16(q, k, v, do)
-    jo, jlse = _flash_fwd(jq, jk, jv, causal=causal, block_q=512,
-                          block_k=512)
-    _, jdk, jdv = _flash_bwd(jq, jk, jv, jo, jlse, jdo, causal=causal,
-                             block_q=512, block_k=512)
+    (_, jdk, jdv), o, lse = _pallas_bwd(q, k, v, do, causal)
     tq, tk, tv, tdo = _torch_bf16(q, k, v, do)
-    o = torch.from_numpy(np.array(jo.astype(jnp.float32))).bfloat16()
-    lse = torch.from_numpy(np.asarray(jlse)[..., 0].copy())
     delta = tfa._delta(o, tdo)
     dk, dv = _dkv_emulated(tq, tk, tv, tdo, lse, delta, causal)
     for name, got, want in (("dk", dk, jdk), ("dv", dv, jdv)):
@@ -143,6 +163,28 @@ def test_dkv_rounding_fits_the_pallas_kernel(H, KVH, causal):
         assert got.dtype == torch.bfloat16 and got.shape == want.shape, name
         rel = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
         assert rel <= TOL_GRAD_REL, f"{name}: {rel:.3e}"
+
+
+@pytest.mark.parametrize("H,KVH,D,causal", [
+    (4, 2, 64, True), (4, 2, 64, False), (4, 1, 64, True),
+    (4, 1, 64, False),
+    (2, 2, 128, True),  # scale 128**-0.5 is no power of 2: its place shows
+])
+def test_dq_rounding_fits_the_pallas_kernel(H, KVH, D, causal):
+    B, S = 1, 256
+    q, k, v, do = _bf16(2, (B, H, S, D), (B, KVH, S, D), (B, KVH, S, D),
+                        (B, H, S, D))
+    (jdq, _, _), o, lse = _pallas_bwd(q, k, v, do, causal)
+    tq, tk, tv, tdo = _torch_bf16(q, k, v, do)
+    delta = tfa._delta(o, tdo)
+    dq = _dq_emulated(tq, tk, tv, tdo, lse, delta, causal)
+    want = np.asarray(jdq.astype(jnp.float32))
+    assert dq.dtype == torch.bfloat16 and dq.shape == want.shape
+    rel = np.abs(dq.float().numpy() - want).max() / np.abs(want).max()
+    assert rel <= TOL_GRAD_REL, f"dq: {rel:.3e}"
+    # the rounding is visible: the emulation is not the fp32 twin
+    plain = tfa.flash_attention_dq_plain(tq, tk, tv, tdo, lse, delta, causal)
+    assert not torch.equal(dq, plain)
 
 
 def _strided(dtype, last, offset=0):
