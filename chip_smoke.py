@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the exit code is not 0:
    forward (K1), dq (K2) and dk/dv (K3) must each have some.
 3. Hold each kernel against its plain PyTorch version on the card, at the
    main paths' shapes and a few more: K1 (forward) at the serving shapes
-   and the training shape, K2 (dq) and K3 (dk/dv) at the training shape,
-   GQA, non-causal and fp32; time kernel, plain version and the PyTorch
+   and both training shapes (the 7B LoRA step's B=1, H=32 and the dense
+   rung's B=4, H=16, S=2048), K2 (dq) and K3 (dk/dv) at both training
+   shapes, GQA, non-causal and fp32; time kernel, plain version and the PyTorch
    library call that computes the same function (a yardstick only: the
    port never calls it).
 4. Drive the serving path: ``LlamaGenerator`` at full Llama-2-7B width
@@ -34,6 +35,23 @@ Phases, in order; any failure raises and the exit code is not 0:
 8. Check the training slice's gradients: the LoRA grads of a 2-layer cut,
    through the kernels and through the plain reference attention.
 9. Show where a train step's time goes: device time by kind of kernel.
+10. Drive the dense training path: ``bench.py``'s second rung (~1.005B
+    params: hidden 2048, mlp 5632, 17 layers, 16 heads of 128, fp32
+    params, remat "dots", ``adafactor(1e-3)``) at full width and depth,
+    B=4, S=2048: one warm-up step and three timed ones, K1 = 34, K2 = K3 =
+    17 launches per step, and device time by kind of one profiled step.
+11. Check the dense slice's gradients: every grad of a 2-layer cut of the
+    rung, through the kernels and through the plain reference attention.
+12. Check kv-cache decode at 7B on the generator's base: prefill 4 prompts
+    of 128 tokens into a 256-slot cache, then decode 16 tokens teacher-
+    forced with the recompute path's greedy tokens; each step's logits
+    against ``llama_forward``'s at the same position.
+13. Check ``merge_lora`` at 7B: ``llama_forward`` on the weights merged
+    with adapter ``a1`` against the activation-side adapter path.
+14. Check blockwise attention against the reference attention, output and
+    q/k/v grads, at the dense rung's attention shape and at a GQA shape.
+15. Drive the MLP family: 3 AdamW steps of ``MLPConfig()`` (784-512-10) on
+    the card, against the same 3 steps on the CPU.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -58,12 +76,16 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch import resolve_device
+from ray_tpu_torch._private.tree import tree_map
 from ray_tpu_torch.models.llama import (
-    LoraConfig, init_lora, llama_forward, llama_lora_loss)
+    LlamaConfig, LoraConfig, init_llama, init_lora, llama_decode,
+    llama_forward, llama_lora_loss, llama_loss, merge_lora)
+from ray_tpu_torch.models.mlp import MLPConfig, init_mlp, mlp_loss
+from ray_tpu_torch.ops.attention import attention, reference_attention
 from ray_tpu_torch.ops.cuda import _build
 from ray_tpu_torch.ops.cuda import flash_attention as fa
 from ray_tpu_torch.parallel import (
-    adamw, create_train_state, make_train_step)
+    adafactor, adamw, create_train_state, make_train_step)
 from ray_tpu_torch.serve.llm import LlamaGenerator
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -84,12 +106,18 @@ KERNEL_SHAPES = [
     (2, 32, 32, 256, 128, False, "bfloat16"),
     (2, 16, 4, 256, 64, True, "float32"),
     (2, 16, 4, 256, 64, True, "bfloat16"),
-    (1, 32, 32, 2048, 128, True, "bfloat16"),  # the training path's
+    (1, 32, 32, 2048, 128, True, "bfloat16"),  # the 7B LoRA step's
+    (4, 16, 16, 2048, 128, True, "bfloat16"),  # the dense 1B step's
 ]
-# K2 and K3: the training path's shape first (the 7B LoRA step at B=1,
-# S=2048), then GQA, non-causal and fp32 / D=64
+SERVE_SHAPE = KERNEL_SHAPES[0]
+TRAIN_SHAPE = (1, 32, 32, 2048, 128, True, "bfloat16")
+DENSE_SHAPE = (4, 16, 16, 2048, 128, True, "bfloat16")
+# K2 and K3: the training paths' shapes first (the 7B LoRA step at B=1,
+# S=2048, the dense 1B step at B=4, S=2048), then GQA, non-causal and fp32 /
+# D=64
 BWD_SHAPES = [
-    (1, 32, 32, 2048, 128, True, "bfloat16"),
+    TRAIN_SHAPE,
+    DENSE_SHAPE,
     (1, 32, 8, 1024, 128, True, "bfloat16"),
     (2, 32, 32, 256, 128, False, "bfloat16"),
     (2, 16, 4, 256, 64, True, "float32"),
@@ -120,9 +148,36 @@ TOL_LSE = 1e-3
 # differ at bf16 rounding level (2**-8 relative per element, partly
 # averaging out)
 TOL_SLICE_REL = 2e-2
+# 32 layers of bf16 activations (the 7B decode and merge checks): the two
+# paths round to bf16 at other places (the cached keys and values, products
+# of other shapes, the merged weights against an activation-side delta),
+# 2**-9 relative per rounding and random in sign; through 32 residual layers
+# such differences were 5.4e-3 of the logits' norm at 2 layers (phase 5), so
+# about 2e-2 at 32 if they add in quadrature. 5e-2 leaves room for that
+TOL_DEEP_REL = 5e-2
+# the MLP's 3 AdamW steps, card against CPU: fp32 on both (TF32 off), sums
+# in other orders (~1e-6 relative), which an Adam update can grow where a
+# gradient is near 0 (test_train_step_matches_jax saw 1.3e-5 on the loss)
+TOL_MLP_REL = 1e-4
 N_TIMED = 30
+# where phases 10-15 run (the card; a CPU rehearsal of their control flow at
+# a tiny size may set "cpu")
+DEVICE = "cuda"
 # the training path: bench.py's Llama-2-7B LoRA rung on one card
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 2048, 3
+# the dense training path: bench.py's second rung (bench.py:55-61), ~1.005B
+# params at its published widths and depth, nothing cut
+DENSE_CFG = LlamaConfig(
+    vocab_size=32000, hidden=2048, mlp_hidden=5632, num_layers=17,
+    num_heads=16, num_kv_heads=16, head_dim=128, max_seq_len=2048,
+    remat=True, remat_policy="dots", attn_impl="auto", loss_chunk=0,
+    param_dtype=torch.float32, dtype=torch.bfloat16)
+DENSE_B, DENSE_S, DENSE_STEPS = 4, 2048, 3
+# kv-cache decode at 7B: 4 prompts of 128 tokens, 16 decoded, 256 slots
+DECODE_B, DECODE_PROMPT, DECODE_NEW, DECODE_MAX_S = 4, 128, 16, 256
+# blockwise attention: the dense rung's attention shape, then GQA
+# (B, H, KVH, S, D), bf16, causal
+BLOCKWISE_SHAPES = [(4, 16, 16, 2048, 128), (2, 32, 8, 1024, 128)]
 
 
 def log(msg: str) -> None:
@@ -268,7 +323,8 @@ def phase_kernels():
             raise AssertionError(f"non-finite kernel output at {shape}")
         if err_o > TOL_O[dname] or err_lse > TOL_LSE:
             raise AssertionError(f"kernel disagrees with plain at {shape}")
-        records.append(dict(shape=shape, err_o=err_o, ms=ms,
+        records.append(dict(key=(B, H, KVH, S, D, causal, dname),
+                            shape=shape, err_o=err_o, ms=ms,
                             plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=bound_ms, bound_by=bound_by))
     return records
@@ -317,7 +373,8 @@ def phase_bwd_kernels():
         shape = f"B={B} H={H} KVH={KVH} S={S} D={D} " \
                 f"{'causal' if causal else 'full'} {dname}"
         tol = TOL_GRAD_REL[dname]
-        rec = dict(shape=shape, library_ms=lib_ms)
+        rec = dict(key=(B, H, KVH, S, D, causal, dname), shape=shape,
+                   library_ms=lib_ms)
         for kern, names in (("dq", ("dq",)), ("dkv", ("dk", "dv"))):
             bound_ms, bound_by = bwd_bound(kern, B, H, KVH, S, D, causal,
                                            dname, q.element_size())
@@ -614,18 +671,23 @@ def phase_grad_check(gen):
         raise AssertionError("kernel gradients disagree with reference")
 
 
-def phase_train_profile(train):
-    """Device time of one 7B LoRA step by kind of kernel, from
-    torch.profiler, against the timed steps' wall."""
+def step_profile(train):
+    """Device time of one train step by kind of kernel, from torch.profiler:
+    (ms by kind, their sum, kernel launches, the largest "other" kernels as
+    (ms, launches, name))."""
     step, state, batch = train["step"], train["state"], train["batch"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
     kinds = {"matmul": 0.0, "K1": 0.0, "K2": 0.0, "K3": 0.0, "other": 0.0}
-    kernels = 0
+    kernels, others = 0, []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        # a record_function span (the optimizer's step) also shows on the
+        # device's timeline: it is no kernel, and the kernels inside it
+        # are counted on their own
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         name = e.key.lower()
         kind = ("K1" if "flash_fwd_kernel" in name else
@@ -636,15 +698,308 @@ def phase_train_profile(train):
                 else "other")
         kinds[kind] += e.self_device_time_total / 1e3
         kernels += e.count
+        if kind == "other":
+            others.append((e.self_device_time_total / 1e3, e.count, e.key))
     device_ms = sum(kinds.values())
     if device_ms <= 0:
         raise AssertionError("the profiler saw no device time")
+    return kinds, device_ms, kernels, sorted(others, reverse=True)[:8]
+
+
+_NAME_NOISE = re.compile(r"void |at::native::|[(]anonymous namespace[)]::")
+
+
+def top_others(others):
+    """The largest "other" kernels of a profiled step, one line."""
+    return "; ".join(f"{ms:.1f} ms in {n} x {_NAME_NOISE.sub('', name)[:110]}"
+                     for ms, n, name in others)
+
+
+def phase_train_profile(train):
+    """Device time of one 7B LoRA step by kind of kernel, against the timed
+    steps' wall."""
+    kinds, device_ms, kernels, others = step_profile(train)
     wall = train["ms_step"]
     log(f"[9] 7B LoRA step: wall {wall:.1f} ms (timed steps), device "
         f"kernels {device_ms:.1f} ms (busy {min(device_ms / wall, 1.0):.1%} "
         f"of wall): " + ", ".join(
             f"{k} {v:.1f} ms ({v / device_ms:.1%})" for k, v in
             kinds.items()) + f"; {kernels} kernel launches per step")
+    log(f"[9] largest other kernels: {top_others(others)}")
+
+
+def dense_setup(num_layers=None):
+    """bench.py's dense rung (cut to ``num_layers`` if given) and a batch of
+    B=4 x 2048 next-token pairs from numpy seed 0, as bench.py draws it."""
+    cfg = dataclasses.replace(
+        DENSE_CFG, num_layers=num_layers or DENSE_CFG.num_layers)
+    tok = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DENSE_B, DENSE_S + 1))
+    tok = torch.from_numpy(tok).to(DEVICE)
+    return cfg, {"inputs": tok[:, :-1], "targets": tok[:, 1:]}
+
+
+def phase_dense():
+    """The dense 1B rung at full width and depth: fp32 params drawn on the
+    card, adafactor(1e-3), remat "dots"; one warm-up and DENSE_STEPS timed
+    steps, then one profiled step. Returns (K1, K2, K3 launches over the
+    timed steps, ms/step)."""
+    cfg, batch = dense_setup()
+    tx = adafactor(1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = create_train_state(lambda g: init_llama(cfg, g, g.device), tx,
+                               device=DEVICE, seed=0)
+    step = make_train_step(lambda p, b: llama_loss(p, b, cfg), tx)
+    state, m = step(state, batch)
+    warm = (m["loss"].item(), m["grad_norm"].item())
+    warm_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = []
+    for _ in range(DENSE_STEPS):
+        state, m = step(state, batch)
+        metrics.append((m["loss"], m["grad_norm"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    max_mem = torch.cuda.max_memory_allocated() / 2**30
+    metrics = [warm] + [(a.item(), b.item()) for a, b in metrics]
+    if not all(np.isfinite(v) for pair in metrics for v in pair):
+        raise AssertionError(f"non-finite loss or grad norm: {metrics}")
+    L = cfg.num_layers
+    # "dots" keeps only the products: each layer's flash call runs in the
+    # forward and again in the backward's recompute
+    want = (2 * L * DENSE_STEPS, L * DENSE_STEPS, L * DENSE_STEPS)
+    if launches != want:
+        raise AssertionError(f"dense launches (K1, K2, K3) {launches} != "
+                             f"{want} over {DENSE_STEPS} steps")
+    ms_step = wall / DENSE_STEPS * 1e3
+    tokens = DENSE_B * DENSE_S
+    tok_s = tokens * DENSE_STEPS / wall
+    flops_tok = cfg.flops_per_token(DENSE_S)
+    n_state = sum(t.numel() for st in state.opt_state.state.values()
+                  for k, t in st.items() if k != "step")
+    log(f"[10] dense {cfg.num_params() / 1e9:.3f} B params (fp32) B="
+        f"{DENSE_B} S={DENSE_S}, remat {cfg.remat_policy}, loss_chunk "
+        f"{cfg.loss_chunk}, adafactor(1e-3) ({n_state * 4 / 1e9:.3f} GB of "
+        f"fp32 state): warm-up {warm_s:.1f} s (init and first step); (loss, "
+        f"grad_norm) per step "
+        f"{[(round(a, 5), round(b, 5)) for a, b in metrics]}; "
+        f"{ms_step:.1f} ms/step, {tok_s:.0f} tokens/s, MFU "
+        f"{tok_s * flops_tok / PEAK_FLOPS['bfloat16']:.1%} "
+        f"({flops_tok * tokens / 1e12:.1f} TFLOP a step vs 989 TFLOP/s "
+        f"bf16), launches K1 {launches[0]} = {2 * L} x {DENSE_STEPS}, K2 "
+        f"{launches[1]} = K3 {launches[2]} = {L} x {DENSE_STEPS}, max "
+        f"memory allocated {max_mem:.2f} GiB")
+    kinds, device_ms, kernels, others = step_profile(
+        dict(step=step, state=state, batch=batch))
+    log(f"[10] dense step: wall {ms_step:.1f} ms (timed steps), device "
+        f"kernels {device_ms:.1f} ms (busy "
+        f"{min(device_ms / ms_step, 1.0):.1%} of wall): " + ", ".join(
+            f"{k} {v:.1f} ms ({v / device_ms:.1%})" for k, v in
+            kinds.items()) + f"; {kernels} kernel launches per step")
+    log(f"[10] largest other kernels: {top_others(others)}")
+    return dict(launches=launches, ms_step=ms_step)
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {n: t for key in sorted(tree) for n, t in _named_leaves(
+            tree[key], f"{prefix}{key}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def phase_dense_grad_check():
+    """Every grad of a 2-layer cut of the dense rung at B=4, S=2048: through
+    the kernels vs through the plain reference attention, on the card."""
+    cfg, batch = dense_setup(num_layers=2)
+    params = init_llama(cfg, torch.Generator(device=DEVICE).manual_seed(31),
+                        torch.device(DEVICE))
+
+    def grads(c):
+        p = tree_map(lambda t: t.detach().clone().requires_grad_(True),
+                     params)
+        loss = llama_loss(p, batch, c)
+        loss.backward()
+        return loss.item(), {n: t.grad for n, t in _named_leaves(p).items()}
+
+    reset_counts()
+    loss, got = grads(cfg)
+    if counts() != (4, 2, 2):  # 2 layers: forward + recompute, backward
+        raise AssertionError(f"dense grad check launches {counts()} != "
+                             f"(4, 2, 2)")
+    ref_loss, want = grads(dataclasses.replace(cfg, attn_impl="reference"))
+    errs = {}
+    for name, g in got.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"non-finite grad {name}")
+        errs[name] = ((g - want[name]).norm() / want[name].norm()).item()
+    worst = max(errs, key=errs.get)
+    log(f"[11] 2-layer dense grads, kernels vs reference attention: loss "
+        f"{loss:.5f} vs {ref_loss:.5f}; relative norm error per leaf max "
+        f"{errs[worst]:.3e} at {worst} (tol {TOL_SLICE_REL:g}), " +
+        ", ".join(f"{n} {e:.2e}" for n, e in sorted(errs.items())))
+    if errs[worst] > TOL_SLICE_REL:
+        raise AssertionError("dense kernel gradients disagree with reference")
+
+
+def _rel_max(got, want):
+    """max|got - want| / max|want|, in fp32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_decode(gen):
+    """kv-cache decode at 7B against the recompute path. The recompute path
+    (the generator's own: one llama_forward over the whole sequence a token)
+    picks DECODE_NEW + 1 greedy tokens; llama_decode then prefills the
+    prompts and decodes the first DECODE_NEW of those tokens, one at a time,
+    teacher-forced. Each call's last logits are held against the recompute
+    path's at the same position."""
+    cfg, params = gen._cfg, gen._params
+    prompts = torch.randint(
+        0, cfg.vocab_size, (DECODE_B, DECODE_PROMPT), device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(41))
+    fwd_ms, dec_ms, want, errs, agree = [], [], [], [], []
+    with torch.inference_mode():
+        seq = prompts
+        for _ in range(DECODE_NEW + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = llama_forward(params, seq, cfg)[:, -1]
+            seq = torch.cat([seq, logits.argmax(-1)[:, None]], dim=1)
+            torch.cuda.synchronize()
+            fwd_ms.append((time.perf_counter() - t0) * 1e3)
+            want.append(logits)
+        greedy = seq[:, DECODE_PROMPT:]
+        shape = (DECODE_B, DECODE_MAX_S, cfg.num_kv_heads, cfg.head_dim)
+        caches = [(torch.zeros(shape, dtype=cfg.dtype, device=DEVICE),
+                   torch.zeros(shape, dtype=cfg.dtype, device=DEVICE))
+                  for _ in range(cfg.num_layers)]
+        reset_counts()
+        calls = [(prompts, 0)] + [(greedy[:, i:i + 1], DECODE_PROMPT + i)
+                                  for i in range(DECODE_NEW)]
+        for i, (toks, index) in enumerate(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = llama_decode(params, toks, cfg, caches, index)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t0) * 1e3)
+            last = logits[:, -1]
+            if last.shape != want[i].shape or not bool(
+                    torch.isfinite(last).all()):
+                raise AssertionError(f"bad decode logits at call {i}")
+            errs.append(_rel_max(last, want[i]))
+            agree.append((last.argmax(-1) == greedy[:, i]).float().mean()
+                         .item())
+    if counts() != (0, 0, 0):
+        raise AssertionError(f"decode launched flash kernels: {counts()}")
+    log(f"[12] 7B kv-cache decode B={DECODE_B}, prompt {DECODE_PROMPT}, "
+        f"{DECODE_NEW} tokens teacher-forced, cache {DECODE_MAX_S} slots: "
+        f"max|decode - forward| / max|forward| per call (prefill first) "
+        f"{[f'{e:.2e}' for e in errs]} (tol {TOL_DEEP_REL:g}); argmax "
+        f"agreement {statistics.mean(agree):.3f}; prefill "
+        f"{dec_ms[0]:.2f} ms, decode step median "
+        f"{statistics.median(dec_ms[1:]):.2f} ms vs recompute step median "
+        f"{statistics.median(fwd_ms):.2f} ms (wall, synchronised, "
+        f"B={DECODE_B})")
+    if max(errs) > TOL_DEEP_REL:
+        raise AssertionError("kv-cache decode disagrees with the forward")
+    return dict(decode_ms=statistics.median(dec_ms[1:]),
+                recompute_ms=statistics.median(fwd_ms))
+
+
+def phase_merge(gen):
+    """llama_forward at 7B on the base weights merged with adapter a1,
+    against the activation-side adapter path."""
+    cfg, lcfg = gen._cfg, gen._lcfg
+    lora = gen._adapter("a1")
+    merged = merge_lora(gen._params, lora, cfg, lcfg)
+    tokens = torch.randint(
+        0, cfg.vocab_size, (2, 256), device=DEVICE,
+        generator=torch.Generator(device=DEVICE).manual_seed(42))
+    with torch.inference_mode():
+        got = llama_forward(merged, tokens, cfg)
+        want = llama_forward(gen._params, tokens, cfg, lora=lora,
+                             lora_cfg=lcfg)
+    del merged
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"bad merged logits {tuple(got.shape)}")
+    rel = ((got - want).norm() / want.norm()).item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    log(f"[13] 7B merge_lora(a1) vs the adapter path, B=2 S=256: relative "
+        f"error {rel:.3e} (tol {TOL_DEEP_REL:g}), argmax agreement "
+        f"{agree:.4f}")
+    if rel > TOL_DEEP_REL:
+        raise AssertionError("merged weights disagree with the adapter path")
+
+
+def phase_blockwise():
+    """attention(impl="blockwise") against reference_attention, output and
+    q/k/v grads, bf16, causal, at each of BLOCKWISE_SHAPES."""
+    gen = torch.Generator(device=DEVICE).manual_seed(43)
+    tol = TOL_GRAD_REL["bfloat16"]
+    for B, H, KVH, S, D in BLOCKWISE_SHAPES:
+        q, k, v, do = (torch.randn((B, S, n, D), generator=gen,
+                                   device=DEVICE).bfloat16()
+                       for n in (H, KVH, KVH, H))
+        outs = {}
+        for name, fn in (
+                ("blockwise", lambda *a: attention(*a, impl="blockwise")),
+                ("reference", reference_attention)):
+            qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(qr, kr, vr)
+            grads = torch.autograd.grad(out, (qr, kr, vr), do)
+            end.record()
+            end.synchronize()
+            outs[name] = ((out.detach(),) + grads, start.elapsed_time(end))
+        (got, ms), (want, ref_ms) = outs["blockwise"], outs["reference"]
+        errs = {n: _rel_max(g, w) for n, g, w in zip(
+            ("o", "dq", "dk", "dv"), got, want)}
+        if not all(bool(torch.isfinite(g).all()) for g in got):
+            raise AssertionError("non-finite blockwise output or grad")
+        log(f"[14] blockwise vs reference attention B={B} H={H} KVH={KVH} "
+            f"S={S} D={D} causal bf16: max error / max|reference| "
+            + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+            + f" (tol {tol:g}); forward + backward {ms:.2f} ms vs "
+            f"reference {ref_ms:.2f} ms (one call each, first use)")
+        if max(errs.values()) > tol:
+            raise AssertionError(f"blockwise disagrees with reference: "
+                                 f"{errs}")
+
+
+def phase_mlp():
+    """3 AdamW steps of the default MLP (784-512-10) on the card, against
+    the same steps on the CPU from the same init and batch."""
+    cfg = MLPConfig()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((128, cfg.in_dim))
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, cfg.out_dim, (128,)))
+    losses = {}
+    for dev in (DEVICE, "cpu"):
+        # the same init on both: drawn on the CPU, then moved
+        state = create_train_state(
+            lambda g: init_mlp(cfg, torch.Generator().manual_seed(0),
+                               torch.device("cpu")), adamw(1e-3), device=dev)
+        step = make_train_step(lambda p, b: mlp_loss(p, b, cfg), adamw(1e-3))
+        batch = {"x": x.to(dev), "y": y.to(dev)}
+        losses[dev] = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            losses[dev].append(m["loss"].item())
+    got, want = losses[DEVICE], losses["cpu"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    log(f"[15] MLP 784-512-10, 3 AdamW steps, B=128: losses on the card "
+        f"{[round(v, 6) for v in got]}, on the CPU "
+        f"{[round(v, 6) for v in want]}, max relative difference "
+        f"{max(errs):.2e} (tol {TOL_MLP_REL:g})")
+    if not all(np.isfinite(got)) or max(errs) > TOL_MLP_REL:
+        raise AssertionError("MLP steps on the card disagree with the CPU")
 
 
 def main() -> int:
@@ -667,18 +1022,31 @@ def main() -> int:
     train = phase_train(gen)
     phase_grad_check(gen)
     phase_train_profile(train)
+    train_launches = train["launches"]
+    del train  # the LoRA state and its step
+    dense = phase_dense()
+    phase_dense_grad_check()
+    phase_decode(gen)
+    phase_merge(gen)
+    phase_blockwise()
+    phase_mlp()
 
     # K1 at the serving path's B=4, S=128 (its headline numbers) and at the
-    # training path's B=1, S=2048; K2 and K3 at the training shape
-    head, k1t, tb = records[0], records[-1], bwd[0]
-    k1_train = train["launches"][0]
+    # training paths' B=1 and B=4, S=2048; K2 and K3 at the training shapes
+    k1 = {r["key"]: r for r in records}
+    k23 = {r["key"]: r for r in bwd}
+    head, k1t, tb = k1[SERVE_SHAPE], k1[TRAIN_SHAPE], k23[TRAIN_SHAPE]
+    k1_train, k1_dense = train_launches[0], dense["launches"][0]
+    timing_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                   "library_ms")
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/cuda/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/pallas/flash_attention.py:110",
-        "launches": serve_launches + k1_train,
-        "launches_by_path": {"serve": serve_launches, "train": k1_train},
+        "launches": serve_launches + k1_train + k1_dense,
+        "launches_by_path": {"serve": serve_launches, "train": k1_train,
+                             "dense": k1_dense},
         "max_abs_err": max(r["err_o"] for r in records),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -687,22 +1055,24 @@ def main() -> int:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "shape": head["shape"],
-        "train_shape": {key: k1t[key] for key in (
-            "shape", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+        "train_shape": {key: k1t[key] for key in timing_keys},
+        "dense_shape": {key: k1[DENSE_SHAPE][key] for key in timing_keys},
     }]
-    for kern, name, line, n in (("dq", "flash_attention_dq", 275,
-                                 train["launches"][1]),
-                                ("dkv", "flash_attention_dkv", 303,
-                                 train["launches"][2])):
+    for i, kern, name, line in ((1, "dq", "flash_attention_dq", 275),
+                                (2, "dkv", "flash_attention_dkv", 303)):
         r = tb[kern]
+        n = train_launches[i] + dense["launches"][i]
+        dense_rec = dict(k23[DENSE_SHAPE][kern],
+                         shape=k23[DENSE_SHAPE]["shape"],
+                         library_ms=k23[DENSE_SHAPE]["library_ms"])
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"ray_tpu_torch/ops/cuda/csrc/{name}.cu",
             "replaces": f"ray_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": n,
-            "launches_by_path": {"train": n},
+            "launches_by_path": {"train": train_launches[i],
+                                 "dense": dense["launches"][i]},
             "max_abs_err": max(b[kern]["abs_err"] for b in bwd),
             # the largest error relative to max|plain|, what the tolerance
             # holds, over every shape
@@ -716,6 +1086,7 @@ def main() -> int:
             # together, so the same time stands on K2's and K3's rows
             "library_ms": tb["library_ms"],
             "shape": tb["shape"],
+            "dense_shape": {key: dense_rec[key] for key in timing_keys},
         })
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

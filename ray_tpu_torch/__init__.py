@@ -6,7 +6,9 @@ copy of. Its slices so far: Llama generation through ``LlamaGenerator``
 (``ray_tpu_torch.serve.llm``), and the Llama train step, LoRA or dense
 (``ray_tpu_torch.parallel.train_step`` with ``models.llama.llama_loss``),
 with attention, forward and backward, in hand-written CUDA kernels
-(``ray_tpu_torch.ops.cuda.flash_attention``). Entry points run on the CUDA
+(``ray_tpu_torch.ops.cuda.flash_attention``), trained with ``adamw`` or
+``adafactor``; beside them kv-cache decode, ``merge_lora``, blockwise
+attention and the MLP family. Entry points run on the CUDA
 card unless the caller passes ``device="cpu"``.
 """
 

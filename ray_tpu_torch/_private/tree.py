@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+import numpy as np
 import torch
 
 
@@ -24,3 +25,15 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [t for item in tree for t in tree_leaves(item)]
     return [tree]
+
+
+def tree_from_numpy(tree: Any) -> Any:
+    """A nested dict of numpy arrays (bf16 ones from ``ml_dtypes`` too) as
+    CPU tensors of the same types, copied."""
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v) for k, v in tree.items()}
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes: no numpy-native bf16
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())

@@ -13,21 +13,24 @@ through ``ray_tpu_torch.ops.attention`` (the CUDA flash kernels on the card,
 forward and backward); the projections and the MLP are ``torch.einsum``, as
 the reference leaves them to XLA.
 
-Not ported yet: ``llama_decode`` (kv cache), ``merge_lora``,
-``llama_logical_axes`` and the ring-attention layer
-(``attn_impl="ring_seq"``)."""
+Incremental decode (``llama_decode``) writes each layer's new keys and values
+into the caller's kv cache in place, where the reference returns new arrays.
+
+Not ported yet: ``llama_logical_axes`` and the ring-attention layer
+(``attn_impl="ring_seq"``); both wait for the multi-GPU slice."""
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
+from ray_tpu_torch._private.tree import tree_from_numpy
 from ray_tpu_torch.ops.attention import attention
 
 
@@ -206,16 +209,6 @@ def init_llama(cfg: LlamaConfig, generator: torch.Generator,
     }
 
 
-def _from_numpy(tree):
-    if isinstance(tree, dict):
-        return {k: _from_numpy(v) for k, v in tree.items()}
-    arr = np.asarray(tree)
-    if arr.dtype.name == "bfloat16":  # ml_dtypes: no numpy-native bf16
-        return torch.from_numpy(arr.view(np.uint16).copy()).view(
-            torch.bfloat16)
-    return torch.from_numpy(arr.copy())
-
-
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The reference's llama params, as numpy arrays
     (``jax.tree.map(np.asarray, params)``, done by the caller), as this
@@ -223,7 +216,7 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     missing = {"embed", "layers", "final_norm", "lm_head"} - set(tree)
     if missing:
         raise ValueError(f"not a llama param tree: missing {sorted(missing)}")
-    return _from_numpy(tree)
+    return tree_from_numpy(tree)
 
 
 def lora_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -231,7 +224,26 @@ def lora_from_jax(tree: Dict[str, Any]) -> Dict[str, Any]:
     numpy arrays) as this port's CPU tensors."""
     if set(tree) != {"layers"}:
         raise ValueError(f"not a LoRA tree: keys {sorted(tree)}")
-    return _from_numpy(tree)
+    return tree_from_numpy(tree)
+
+
+def merge_lora(params: Dict[str, Any], lora: Dict[str, Any],
+               cfg: LlamaConfig, lcfg: LoraConfig) -> Dict[str, Any]:
+    """Fold the adapters into the base weights (for serving or export):
+    ``w + scale * A B`` summed in fp32, cast back to the weight's type. New
+    tensors for the adapted weights; the others are shared with
+    ``params``."""
+    merged = dict(params)
+    layers = dict(params["layers"])
+    for name, ab in lora["layers"].items():
+        w = layers[name]
+        a2 = ab["a"].reshape(cfg.num_layers, -1, lcfg.rank)
+        b2 = ab["b"].reshape(cfg.num_layers, lcfg.rank, -1)
+        delta = torch.einsum("lir,lro->lio", a2.float(), b2.float()) \
+            * lcfg.scale
+        layers[name] = (w.float() + delta.reshape(w.shape)).to(w.dtype)
+    merged["layers"] = layers
+    return merged
 
 
 def _rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -259,8 +271,14 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
 def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
            positions: torch.Tensor,
            lora: Optional[Dict[str, Any]] = None,
-           lora_scale: float = 0.0) -> torch.Tensor:
-    """One transformer block, no kv cache. x: [B, S, H_model]."""
+           lora_scale: float = 0.0, *,
+           kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+           cache_index: Optional[Union[int, torch.Tensor]] = None
+           ) -> torch.Tensor:
+    """One transformer block. x: [B, S, H_model]. With ``kv_cache`` (ck,
+    cv), each [B, max_S, KVH, D], the block's k and v are written into it at
+    ``cache_index`` (in place) and the queries attend over the whole cache
+    through the reference attention, offset by ``cache_index``."""
     dt = cfg.dtype
 
     def _ld(name, t_in, eq_a, eq_b):
@@ -281,11 +299,19 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
          + _ld("wv", h, "bsh,hr->bsr", "bsr,rnd->bsnd"))
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    if cfg.attn_impl == "ring_seq":
+    if kv_cache is not None:
+        ck, cv = kv_cache
+        slots = _cache_slots(cache_index, q.shape[1], ck.shape[1], ck.device)
+        ck.index_copy_(1, slots, k)
+        cv.index_copy_(1, slots, v)
+        attn_out = attention(q, ck, cv, impl="reference", causal=True,
+                             q_offset=cache_index)
+    elif cfg.attn_impl == "ring_seq":
         raise NotImplementedError(
             "attn_impl='ring_seq' (sequence-parallel ring attention) is not "
             "ported to ray_tpu_torch yet")
-    attn_out = attention(q, k, v, impl=cfg.attn_impl, causal=True)
+    else:
+        attn_out = attention(q, k, v, impl=cfg.attn_impl, causal=True)
     x = (x + torch.einsum("bsnd,ndh->bsh", attn_out, lp["wo"].to(dt))
          + _ld("wo", attn_out, "bsnd,ndr->bsr", "bsr,rh->bsh"))
     # --- mlp (SwiGLU) ---
@@ -297,6 +323,17 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     act = torch.nn.functional.silu(gate) * up
     return (x + torch.einsum("bsm,mh->bsh", act, lp["w_down"].to(dt))
             + _ld("w_down", act, "bsm,mr->bsr", "bsr,rh->bsh"))
+
+
+def _cache_slots(cache_index: Union[int, torch.Tensor], n: int,
+                 max_s: int, device: torch.device) -> torch.Tensor:
+    """The n cache slots written from ``cache_index`` on, as
+    ``lax.dynamic_update_slice`` places them: a negative start counts from
+    the end, and the start is clamped to [0, max_s - n]. A tensor index
+    stays on its device (no host sync)."""
+    start = torch.as_tensor(cache_index, device=device)
+    start = torch.where(start < 0, start + max_s, start).clamp(0, max_s - n)
+    return start + torch.arange(n, device=device)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -336,6 +373,37 @@ def _layer_policies(cfg: LlamaConfig):
     return [pol] * n
 
 
+def llama_decode(
+    params: Dict[str, Any],
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    kv_caches: List[Tuple[torch.Tensor, torch.Tensor]],
+    cache_index: Union[int, torch.Tensor],
+    *,
+    positions: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, List[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Incremental decode: tokens [B, S] appended to the kv caches (one
+    (ck, cv) pair per layer, each [B, max_S, KVH, D] in the activation type)
+    at ``cache_index`` (an int or a 0-dim tensor) → (logits [B, S, V] fp32,
+    the caches). The caches are updated in place and returned. Attention is
+    the reference path with ``q_offset=cache_index``, as in the JAX
+    package; no remat."""
+    B, S = tokens.shape
+    if positions is None:
+        positions = (torch.arange(S, device=tokens.device)
+                     + torch.as_tensor(cache_index, device=tokens.device)
+                     ).expand(B, S)
+    x = params["embed"][tokens].to(cfg.dtype)
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = {name: w[i] for name, w in layers.items()}
+        x = _layer(cfg, x, lp, positions, kv_cache=kv_caches[i],
+                   cache_index=cache_index)
+    x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
+    logits = torch.einsum("bsh,hv->bsv", x, params["lm_head"].to(cfg.dtype))
+    return logits.float(), list(kv_caches)
+
+
 def llama_hidden(
     params: Dict[str, Any],
     tokens: torch.Tensor,
@@ -356,12 +424,17 @@ def llama_hidden(
         positions = torch.arange(S, device=tokens.device).expand(B, S)
     x = params["embed"][tokens].to(cfg.dtype)
     scale = lora_cfg.scale if lora_cfg is not None else 0.0
-    layers = params["layers"]
-    lo_layers = lora["layers"] if lora is not None else {}
+    # per-layer views through one ``unbind`` per leaf: its backward stacks
+    # the layers' grads once, as the reference's scan writes them, where
+    # indexing each layer would add a zero-filled full-size grad per layer
+    layers = {name: w.unbind(0) for name, w in params["layers"].items()}
+    lo_layers = {} if lora is None else {
+        name: (ab["a"].unbind(0), ab["b"].unbind(0))
+        for name, ab in lora["layers"].items()}
     for i, policy in enumerate(_layer_policies(cfg)):
         lp = {name: w[i] for name, w in layers.items()}
-        lo = {name: {"a": ab["a"][i], "b": ab["b"][i]}
-              for name, ab in lo_layers.items()}
+        lo = {name: {"a": a[i], "b": b[i]}
+              for name, (a, b) in lo_layers.items()}
         if policy is None:
             x = _layer(cfg, x, lp, positions, lo, scale)
         elif policy == "full":

@@ -3,5 +3,6 @@
 and that the card checks the kernel against."""
 
 from ray_tpu_torch.ops.attention import attention, reference_attention
+from ray_tpu_torch.ops.blockwise_attention import blockwise_attention
 
-__all__ = ["attention", "reference_attention"]
+__all__ = ["attention", "blockwise_attention", "reference_attention"]

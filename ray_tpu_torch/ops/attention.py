@@ -58,7 +58,8 @@ def attention(
     valid_kv_len: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """impl: auto (the flash kernel for CUDA tensors when shapes allow, else
-    reference), flash, reference. ``blockwise`` is not ported yet."""
+    reference), flash, blockwise (a loop over kv blocks, memory-efficient
+    forward and backward), reference."""
     if impl == "auto":
         use_flash = (
             q.device.type == "cuda" and q_offset is None
@@ -71,12 +72,15 @@ def attention(
         from ray_tpu_torch.ops.cuda.flash_attention import flash_attention
         return flash_attention(q, k, v, causal=causal)
     if impl == "blockwise":
-        raise NotImplementedError(
-            "blockwise attention is not ported to ray_tpu_torch yet; use "
-            "impl='flash' or impl='reference'")
+        if q_offset is not None or valid_kv_len is not None:
+            raise NotImplementedError(
+                "blockwise attention does not support q_offset/"
+                "valid_kv_len; use impl='reference' for cached decode")
+        from ray_tpu_torch.ops.blockwise_attention import blockwise_attention
+        return blockwise_attention(q, k, v, causal=causal)
     if impl != "reference":
         raise ValueError(
             f"unknown attention impl {impl!r}; expected "
-            "auto|flash|reference")
+            "auto|flash|blockwise|reference")
     return reference_attention(q, k, v, causal=causal, q_offset=q_offset,
                                valid_kv_len=valid_kv_len)

@@ -92,7 +92,7 @@ def test_wrapper_on_cpu_uses_plain_version_in_public_layout():
     assert tfa.launches == before, "no kernel launch for CPU tensors"
 
 
-@pytest.mark.parametrize("impl", ["reference", "flash", "auto"])
+@pytest.mark.parametrize("impl", ["reference", "flash", "auto", "blockwise"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_dispatcher_matches_jax_reference(impl, causal):
     q, k, v = _qkv(3, 2, 4, 2, 128, 32, layout="bshd")
@@ -153,9 +153,10 @@ def test_flash_rejects_what_the_kernel_cannot_take():
     q, k, v = (torch.zeros(1, 2, 128, 32, device="meta") for _ in range(3))
     with pytest.raises(ValueError, match="no flash-attention kernel"):
         tfa.flash_attention_fwd(q, k, v, True)
+    # as in the JAX package: blockwise takes no decode-time arguments
     with pytest.raises(NotImplementedError, match="blockwise"):
         attention(*(torch.zeros(1, 128, 2, 32) for _ in range(3)),
-                  impl="blockwise")
+                  impl="blockwise", q_offset=3)
     with pytest.raises(ValueError, match="unknown attention impl"):
         attention(*(torch.zeros(1, 128, 2, 32) for _ in range(3)),
                   impl="ring")
