@@ -52,6 +52,17 @@ Phases, in order; any failure raises and the exit code is not 0:
     q/k/v grads, at the dense rung's attention shape and at a GQA shape.
 15. Drive the MLP family: 3 AdamW steps of ``MLPConfig()`` (784-512-10) on
     the card, against the same 3 steps on the CPU.
+16. Drive the MoE training path, after releasing the 7B base: the
+    Mixtral-style MoE (``models/moe.py``) at Mixtral-8x7B's widths (hidden
+    4096, 8 experts of 14336, top-2, capacity 1.25, 32 heads, 8 kv heads,
+    vocab 32000) cut to 2 of its 32 layers, fp32 params, ``adamw(1e-3)``,
+    B=1, S=2048: one warm-up step and three timed ones, with finite loss and
+    grad norm, aux > 0 and no flash launch (the reference attention is the
+    reference's choice); the routing after the last step, MFU with its FLOP
+    count, peak memory and device time by kind of one profiled step.
+17. Check the MoE on the card against the CPU: ``_moe_ffn`` at full width
+    on layer 0's weights (the routing, the capacity drops, y and aux), and 3
+    AdamW steps of a narrow fp32 MoE on both.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -61,6 +72,7 @@ beside it, it fails before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -76,11 +88,13 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from ray_tpu_torch import resolve_device
-from ray_tpu_torch._private.tree import tree_map
+from ray_tpu_torch._private.tree import tree_leaves, tree_map
 from ray_tpu_torch.models.llama import (
     LlamaConfig, LoraConfig, init_llama, init_lora, llama_decode,
     llama_forward, llama_lora_loss, llama_loss, merge_lora)
+from ray_tpu_torch.models import moe
 from ray_tpu_torch.models.mlp import MLPConfig, init_mlp, mlp_loss
+from ray_tpu_torch.models.moe import MoEConfig, init_moe, moe_loss
 from ray_tpu_torch.ops.attention import attention, reference_attention
 from ray_tpu_torch.ops.cuda import _build
 from ray_tpu_torch.ops.cuda import flash_attention as fa
@@ -178,6 +192,30 @@ DECODE_B, DECODE_PROMPT, DECODE_NEW, DECODE_MAX_S = 4, 128, 16, 256
 # blockwise attention: the dense rung's attention shape, then GQA
 # (B, H, KVH, S, D), bf16, causal
 BLOCKWISE_SHAPES = [(4, 16, 16, 2048, 128), (2, 32, 8, 1024, 128)]
+# the MoE training path: MoEConfig.mixtral_8x7b_proxy (Mixtral-8x7B's widths)
+# at 2 of its 32 layers (32 are 46.7 B params, 93 GB in bf16 for the weights
+# alone), fp32 params, bf16 activations; 3.165 B params under AdamW
+MOE_CFG = dataclasses.replace(MoEConfig.mixtral_8x7b_proxy(), num_layers=2)
+MOE_B, MOE_S, MOE_STEPS = 1, 2048, 3
+# phase 17: _moe_ffn at full width on B=1 x MOE_FFN_S tokens; and 3 AdamW
+# steps of a narrow MoE in fp32 (so that no routing can flip between the
+# card's and the CPU's fp32 sums of other orders), B=4, S=128
+MOE_FFN_S = 256
+MOE_NARROW_CFG = dataclasses.replace(
+    MoEConfig.tiny(), hidden=256, mlp_hidden=512, num_experts=4,
+    dtype=torch.float32)
+MOE_NARROW_B, MOE_NARROW_S = 4, 128
+# _moe_ffn at full width, card (bf16 products, as the path runs) against the
+# CPU in fp32 from the same bf16 x and the same fp32 weights: the card rounds
+# x's expert products, the SwiGLU activations and the combine to bf16 (2**-9
+# relative per rounding, random in sign over 4096-14336 terms), so y moves by
+# about one bf16 step of its largest entries: 2e-2 of max|y|. The aux loss is
+# fp32 from the same fp32 router inputs on both (sums of another order only)
+TOL_MOE_Y_REL = 2e-2
+TOL_MOE_AUX_REL = 1e-5
+# routing: the share of (token, k) pairs that must pick the same expert in
+# the same order on the card and on the CPU
+MOE_ROUTING_AGREE = 0.999
 
 
 def log(msg: str) -> None:
@@ -1002,6 +1040,293 @@ def phase_mlp():
         raise AssertionError("MLP steps on the card disagree with the CPU")
 
 
+def moe_flops(cfg, B, S):
+    """(model FLOPs a step, executed FLOPs by part a step). The model's: 6 x
+    the params a token meets (attention projections, router, its top-k
+    experts' FFN, lm_head; the embedding is a gather) x tokens, plus the
+    attention's score and value products at 12 x L x H x D x S a token, as
+    ``LlamaConfig.flops_per_token`` reckons them. Executed: the expert
+    products over every capacity slot (E x C rows an expert batch, forward
+    and two backward products), the dense dispatch (forward, dx) and combine
+    (forward and both grads) einsums, the projections, the full S x S score
+    and value products of the reference attention, and the lm_head."""
+    h, m, E, K, L = (cfg.hidden, cfg.mlp_hidden, cfg.num_experts,
+                     cfg.experts_per_token, cfg.num_layers)
+    nh, nkv, hd, V = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, \
+        cfg.vocab_size
+    C, T = moe.capacity(cfg, S), B * S
+    proj = h * (nh + 2 * nkv) * hd + nh * hd * h
+    active = L * (proj + h * E + K * 3 * h * m) + h * V
+    attn = 12.0 * L * nh * hd * S * T
+    executed = {
+        "experts at capacity": 18.0 * L * E * B * C * h * m,
+        "dispatch/combine": 5 * 2.0 * L * T * E * C * h,
+        "attention projections and router": 6.0 * L * (proj + h * E) * T,
+        "attention scores and values": attn,
+        "lm_head": 6.0 * h * V * T,
+    }
+    return 6.0 * active * T + attn, executed
+
+
+def moe_routing(params, tokens, cfg):
+    """One forward without grad: (each layer's ``moe.Routing``, the layers'
+    aux loss summed). The module's ``route`` is wrapped for the call."""
+    seen, route = [], moe.route
+
+    def spy(c, x, router):
+        r = route(c, x, router)
+        seen.append(r)
+        return r
+
+    moe.route = spy
+    try:
+        with torch.no_grad():
+            _, aux = moe.moe_forward(params, tokens, cfg)
+    finally:
+        moe.route = route
+    return seen, aux.item()
+
+
+MOE_KINDS = ("expert products", "dispatch/combine", "attention",
+             "other products", "AdamW", "other")
+
+
+def moe_op_kind(name, shapes, cfg, B, S):
+    """The kind of an operator of the MoE step, from its name and input
+    shapes: products (bmm/mm) by their batch and widths (the experts' batch
+    is E, the attention's B x H; dispatch and combine have an E x C width or
+    a B x S x E batch), AdamW by torch's foreach kernels, and elementwise
+    work on an S x S score matrix or on the [..., E, C] masks by its
+    shapes."""
+    E, C = cfg.num_experts, moe.capacity(cfg, S)
+    shapes = [tuple(sh) for sh in shapes if sh]
+    if name.startswith("aten::_foreach_"):
+        return "AdamW"
+    if name in ("aten::bmm", "aten::mm") and shapes:
+        batch = shapes[0][0] if len(shapes[0]) == 3 else 1
+        dims = {d for sh in shapes for d in sh[-2:]}
+        if batch == E:
+            return "expert products"
+        if batch == B * cfg.num_heads:
+            return "attention"
+        if E * C in dims or batch == B * S * E:
+            return "dispatch/combine"
+        return "other products"
+    if any(len(sh) >= 2 and sh[-2:] == (S, S) for sh in shapes):
+        return "attention"
+    if any(len(sh) >= 2 and sh[-2:] == (E, C) for sh in shapes):
+        return "dispatch/combine"
+    return "other"
+
+
+def moe_step_profile(step, state, batch, cfg, B, S):
+    """Device time of one MoE train step by kind (``moe_op_kind``), from
+    torch.profiler with input shapes: each operator's own kernels. Returns
+    (ms by kind, device kernel ms in all, kernel launches, the largest
+    "other" operators as (ms, launches, name and shapes))."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    kinds = dict.fromkeys(MOE_KINDS, 0.0)
+    others = {}
+    for e in prof.events():
+        # operators only: the runtime's own events ("Command Buffer Full")
+        # carry the kernels they waited on a second time
+        if (e.device_type != torch.autograd.DeviceType.CPU
+                or not e.name.startswith("aten::") or not e.kernels):
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        kind = moe_op_kind(e.name, e.input_shapes or [], cfg, B, S)
+        kinds[kind] += ms
+        if kind == "other":
+            key = f"{e.name} {[list(sh) for sh in e.input_shapes if sh]}"
+            t, n = others.get(key, (0.0, 0))
+            others[key] = (t + ms, n + len(e.kernels))
+    device_ms, launches = 0.0, 0
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            device_ms += e.self_device_time_total / 1e3
+            launches += e.count
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top = sorted(((t, n, key) for key, (t, n) in others.items()),
+                 reverse=True)[:8]
+    return kinds, device_ms, launches, top
+
+
+def phase_moe():
+    """The MoE train step at Mixtral-8x7B width, 2 layers: fp32 params drawn
+    on the card, adamw(1e-3); one warm-up and MOE_STEPS timed steps, the
+    routing after them, then one profiled step. Returns (K1, K2, K3
+    launches over the warm-up and timed steps, the params)."""
+    cfg = MOE_CFG
+    tok = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_B, MOE_S + 1))
+    tok = torch.from_numpy(tok).to(DEVICE)
+    batch = {"inputs": tok[:, :-1], "targets": tok[:, 1:]}
+    tx = adamw(1e-3)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = create_train_state(lambda g: init_moe(cfg, g, g.device), tx,
+                               device=DEVICE, seed=0)
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    routing0, aux0 = moe_routing(state.params, batch["inputs"], cfg)
+    step = make_train_step(lambda p, b: moe_loss(p, b, cfg), tx)
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    warm = (m["loss"].item(), m["grad_norm"].item())
+    warm_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics = []
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(MOE_STEPS):
+        state, m = step(state, batch)
+        metrics.append((m["loss"], m["grad_norm"]))
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    event_ms = start.elapsed_time(end) / MOE_STEPS
+    max_mem = torch.cuda.max_memory_allocated() / 2**30
+    metrics = [warm] + [(a.item(), b.item()) for a, b in metrics]
+    if not all(np.isfinite(v) for pair in metrics for v in pair):
+        raise AssertionError(f"non-finite loss or grad norm: {metrics}")
+    if launches != (0, 0, 0):
+        raise AssertionError(f"the MoE step launched flash kernels "
+                             f"{launches}: its attention is the reference")
+    routing, aux = moe_routing(state.params, batch["inputs"], cfg)
+    if not (aux0 > 0 and aux > 0):
+        raise AssertionError(f"aux loss {aux0}, {aux} is not positive")
+    ms_step = wall / MOE_STEPS * 1e3
+    tokens = MOE_B * MOE_S
+    tok_s = tokens * MOE_STEPS / wall
+    model_flops, executed = moe_flops(cfg, MOE_B, MOE_S)
+    log(f"[16] MoE {n_params / 1e9:.3f} B params (fp32; hidden "
+        f"{cfg.hidden}, {cfg.num_experts} experts of {cfg.mlp_hidden} top-"
+        f"{cfg.experts_per_token}, capacity {moe.capacity(cfg, MOE_S)} "
+        f"slots an expert, {cfg.num_heads} heads, {cfg.num_kv_heads} kv "
+        f"heads, vocab {cfg.vocab_size}, {cfg.num_layers} layers) B={MOE_B} "
+        f"S={MOE_S}, adamw(1e-3): init {init_s:.1f} s, first step "
+        f"{warm_s:.1f} s; (loss, grad_norm) per step "
+        f"{[(round(a, 5), round(b, 5)) for a, b in metrics]}; "
+        f"{ms_step:.1f} ms/step (host clock), {event_ms:.1f} ms/step "
+        f"(CUDA events), {tok_s:.0f} tokens/s, MFU "
+        f"{tok_s * model_flops / tokens / PEAK_FLOPS['bfloat16']:.1%} "
+        f"({model_flops / 1e12:.2f} TFLOP a step of the model vs 989 "
+        f"TFLOP/s bf16); executed a step: " + ", ".join(
+            f"{k} {v / 1e12:.2f}" for k, v in executed.items())
+        + f" TFLOP ({sum(executed.values()) / 1e12:.2f} in all); aux loss "
+        f"(summed over the layers) {aux0:.5f} at init, {aux:.5f} after the "
+        f"last step; launches "
+        f"K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}; max memory "
+        f"allocated {max_mem:.2f} GiB")
+    for when, rs in (("at init", routing0), ("after the last step",
+                                            routing)):
+        for i, r in enumerate(rs):
+            routed = r.onehot.sum((0, 1, 2))
+            kept = r.keep.sum((0, 1, 2))
+            log(f"[16] routing {when}, layer {i}: (token, k) pairs per "
+                f"expert {routed.tolist()}, kept {kept.tolist()} of "
+                f"{moe.capacity(cfg, MOE_S)} slots, dropped "
+                f"{1 - kept.sum().item() / routed.sum().item():.2%}")
+    kinds, device_ms, kernels, others = moe_step_profile(
+        step, state, batch, cfg, MOE_B, MOE_S)
+    attributed = sum(kinds.values())
+    log(f"[16] MoE step: wall {ms_step:.1f} ms (timed steps), device "
+        f"kernels {device_ms:.1f} ms (busy {min(device_ms / ms_step, 1.0):.1%}"
+        f" of wall), by operator: " + ", ".join(
+            f"{k} {v:.1f} ms ({v / device_ms:.1%})" for k, v in
+            kinds.items()) + f" ({device_ms - attributed:.1f} ms not "
+        f"attributed to an operator); {kernels} kernel launches per step")
+    log("[16] largest other operators: " + "; ".join(
+        f"{t:.1f} ms in {n} x {key[:110]}" for t, n, key in others))
+    return dict(launches=launches, params=state.params)
+
+
+def phase_moe_check(params):
+    """(a) _moe_ffn at full width on layer 0's weights of phase 16: the card
+    (bf16 activations) against the CPU (fp32, from the same bf16 x and fp32
+    weights). (b) 3 AdamW steps of the narrow fp32 MoE on the card against
+    the same steps on the CPU."""
+    cfg = MOE_CFG
+    lp = {n: w[0].detach() for n, w in params["layers"].items()}
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, MOE_FFN_S, cfg.hidden), dtype=np.float32)).bfloat16()
+    cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    cpu_lp = {n: w.cpu() for n, w in lp.items()}
+    out = {}
+    for dev, c, p, xd in ((DEVICE, cfg, lp, x.to(DEVICE)),
+                          ("cpu", cpu_cfg, cpu_lp, x.float())):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            r = moe.route(c, xd, p["router"])
+            y, aux = moe._moe_ffn(c, xd, p)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        out[dev] = (r, y.float().cpu(), aux.item(),
+                    time.perf_counter() - t0)
+    (rc, yc, auxc, tc), (rh, yh, auxh, th) = out[DEVICE], out["cpu"]
+    same = (rc.expert_idx.cpu() == rh.expert_idx)
+    agree = same.float().mean().item()
+    drops = [int((r.onehot.sum() - r.keep.sum()).item()) for r in (rc, rh)]
+    probs = torch.sort(rh.probs, dim=-1, descending=True).values
+    K = cfg.experts_per_token
+    margin = (probs[..., :K] - probs[..., 1:K + 1]).min().item()
+    tok_ok = same.all(-1) & (rc.keep.cpu() == rh.keep).all(-1).all(-1)
+    y_err = ((yc - yh).abs()[tok_ok].max() / yh.abs().max()).item()
+    aux_err = abs(auxc - auxh) / abs(auxh)
+    if not bool(torch.isfinite(yc).all()):
+        raise AssertionError("non-finite _moe_ffn output on the card")
+    log(f"[17] _moe_ffn at full width, B=1 S={MOE_FFN_S} (capacity "
+        f"{moe.capacity(cfg, MOE_FFN_S)}), card bf16 vs CPU fp32 from the "
+        f"same bf16 x: routing agreement {agree:.4%} of (token, k) pairs "
+        f"(need {MOE_ROUTING_AGREE:.1%}), dropped pairs {drops[0]} vs "
+        f"{drops[1]}, smallest gap between consecutive top-{K + 1} router "
+        f"probabilities {margin:.3e}; max|y - y_cpu| / max|y_cpu| "
+        f"{y_err:.3e} over {int(tok_ok.sum())} tokens routed alike (tol "
+        f"{TOL_MOE_Y_REL:g}); aux {auxc:.6f} vs {auxh:.6f}, relative "
+        f"{aux_err:.2e} (tol {TOL_MOE_AUX_REL:g}); card {tc * 1e3:.1f} ms, "
+        f"CPU {th * 1e3:.0f} ms (first call each)")
+    if (agree < MOE_ROUTING_AGREE or drops[0] != drops[1]
+            or y_err > TOL_MOE_Y_REL or aux_err > TOL_MOE_AUX_REL):
+        raise AssertionError("_moe_ffn on the card disagrees with the CPU")
+
+    cfg = MOE_NARROW_CFG
+    tok = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (MOE_NARROW_B, MOE_NARROW_S + 1)))
+    losses = {}
+    for dev in (DEVICE, "cpu"):
+        # the same init on both: drawn on the CPU, then moved
+        state = create_train_state(
+            lambda g: init_moe(cfg, torch.Generator().manual_seed(0),
+                               torch.device("cpu")), adamw(1e-3), device=dev)
+        step = make_train_step(lambda p, b: moe_loss(p, b, cfg), adamw(1e-3))
+        batch = {"inputs": tok[:, :-1].to(dev), "targets": tok[:, 1:].to(dev)}
+        losses[dev] = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            losses[dev].append(m["loss"].item())
+    got, want = losses[DEVICE], losses["cpu"]
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, want)]
+    log(f"[17] narrow MoE (hidden {cfg.hidden}, {cfg.num_experts} experts "
+        f"of {cfg.mlp_hidden}, {cfg.num_layers} layers, fp32), 3 AdamW "
+        f"steps, B={MOE_NARROW_B} S={MOE_NARROW_S}: losses on the card "
+        f"{[round(v, 6) for v in got]}, on the CPU "
+        f"{[round(v, 6) for v in want]}, max relative difference "
+        f"{max(errs):.2e} (tol {TOL_MLP_REL:g})")
+    if not all(np.isfinite(got)) or max(errs) > TOL_MLP_REL:
+        raise AssertionError("MoE steps on the card disagree with the CPU")
+    if not got[-1] < got[0]:
+        raise AssertionError(f"the MoE loss did not fall: {got}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1028,8 +1353,16 @@ def main() -> int:
     phase_dense_grad_check()
     phase_decode(gen)
     phase_merge(gen)
+    del gen  # the 7B base: phase 16 needs the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_blockwise()
     phase_mlp()
+    log(f"[16] memory allocated before the MoE phases "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    moe_run = phase_moe()
+    phase_moe_check(moe_run.pop("params"))
+    moe_launches = moe_run["launches"]
 
     # K1 at the serving path's B=4, S=128 (its headline numbers) and at the
     # training paths' B=1 and B=4, S=2048; K2 and K3 at the training shapes
@@ -1046,7 +1379,7 @@ def main() -> int:
         "replaces": "ray_tpu/ops/pallas/flash_attention.py:110",
         "launches": serve_launches + k1_train + k1_dense,
         "launches_by_path": {"serve": serve_launches, "train": k1_train,
-                             "dense": k1_dense},
+                             "dense": k1_dense, "moe": moe_launches[0]},
         "max_abs_err": max(r["err_o"] for r in records),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1072,7 +1405,8 @@ def main() -> int:
             "replaces": f"ray_tpu/ops/pallas/flash_attention.py:{line}",
             "launches": n,
             "launches_by_path": {"train": train_launches[i],
-                                 "dense": dense["launches"][i]},
+                                 "dense": dense["launches"][i],
+                                 "moe": moe_launches[i]},
             "max_abs_err": max(b[kern]["abs_err"] for b in bwd),
             # the largest error relative to max|plain|, what the tolerance
             # holds, over every shape

@@ -177,10 +177,10 @@ def init_lora(cfg: LlamaConfig, lcfg: LoraConfig,
 def init_llama(cfg: LlamaConfig, generator: torch.Generator,
                device: torch.device) -> Dict[str, Any]:
     """Initialize params with the reference's truncated-normal fan-in
-    scales. Matrix weights and the embedding are stored in
-    ``cfg.param_dtype``, norm weights in fp32. Each weight of each layer is
-    drawn in fp32 on its own and stored at once, so a 7B init in bf16 never
-    holds a whole fp32 copy."""
+    scales. Every leaf is stored in ``cfg.param_dtype``, the norm weights
+    (ones) too, as in the reference. Each weight of each layer is drawn in
+    fp32 on its own and stored at once, so a 7B init in bf16 never holds a
+    whole fp32 copy."""
     h, m = cfg.hidden, cfg.mlp_hidden
     nh, nkv, hd, L = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                       cfg.num_layers)
@@ -199,12 +199,12 @@ def init_llama(cfg: LlamaConfig, generator: torch.Generator,
     for i in range(L):
         for name, (shape, fan_in) in shapes.items():
             layers[name][i] = draw(shape, fan_in)
-    layers["attn_norm"] = torch.ones((L, h), device=device)
-    layers["mlp_norm"] = torch.ones((L, h), device=device)
+    layers["attn_norm"] = torch.ones((L, h), dtype=dt, device=device)
+    layers["mlp_norm"] = torch.ones((L, h), dtype=dt, device=device)
     return {
         "embed": draw((cfg.vocab_size, h), 1.0),
         "layers": layers,
-        "final_norm": torch.ones((h,), device=device),
+        "final_norm": torch.ones((h,), dtype=dt, device=device),
         "lm_head": draw((h, cfg.vocab_size), h),
     }
 

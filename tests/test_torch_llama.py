@@ -151,7 +151,7 @@ def test_init_layout_matches_reference():
             == jax.tree.map(lambda t: tuple(t.shape), got))
     assert got["embed"].dtype == torch.bfloat16
     assert got["layers"]["wq"].dtype == torch.bfloat16
-    assert got["layers"]["attn_norm"].dtype == torch.float32
+    assert got["layers"]["attn_norm"].dtype == torch.bfloat16
     # truncated normal on [-2, 2] times fan_in**-0.5
     w = got["layers"]["w_down"].float()
     bound = 2 * tc.mlp_hidden ** -0.5

@@ -99,9 +99,10 @@ def test_generator_own_weights_and_adapters():
         assert all(len(t) == 4 for t in got)
         assert all(0 <= x < gen._cfg.vocab_size for t in got for x in t)
         assert got[1] == got[3]
-        # matrices in the activation type, norms in fp32
+        # every leaf in the activation type: init_llama stores the norms in
+        # param_dtype too, as the reference's does
         assert gen._params["layers"]["wq"].dtype == torch.bfloat16
-        assert gen._params["final_norm"].dtype == torch.float32
+        assert gen._params["final_norm"].dtype == torch.bfloat16
         a1 = gen._adapter("a1")["layers"]["wq"]
         assert a1["b"].abs().sum() > 0, "adapter B not nudged"
         # deterministic per id: a fresh generator draws the same adapter
