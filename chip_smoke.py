@@ -17,6 +17,14 @@ Phases, in order; any failure raises and the exit code is not 0:
    shapes, GQA, non-causal and fp32; time kernel, plain version and the PyTorch
    library call that computes the same function (a yardstick only: the
    port never calls it).
+20. (Runs here, between 3 and 4.) Ring attention's per-rank hop schedule
+    for P=4 at Llama-2-7B attention width (B=1, H=KVH=32, D=128, S=8192,
+    2048 a rank, bf16, causal), every rank's chunks fed in this process:
+    o and lse against K1 on the whole sequence, dq, dk and dv (summed over
+    the ranks) against K2 and K3 on the whole sequence, K1 = K2 = K3 = 10
+    launches (P(P+1)/2 hops), and the schedule's time beside the kernels'
+    on the whole sequence. Phase 3 also times K1-K3 at the off-diagonal
+    hop's shape (B=1, H=32, S=2048, not masked).
 4. Drive the serving path: ``LlamaGenerator`` at full Llama-2-7B width
    (random weights from a seed, drawn on the card) answers 6 concurrent
    requests with multiplexed LoRA adapters; every attention call must have
@@ -70,6 +78,22 @@ Phases, in order; any failure raises and the exit code is not 0:
     time, the resumed fit's time and ``df -h /dev/shm``. A kernel that does
     not load, a NCCL group that does not form or a loop that raises in the
     worker makes ``fit`` return an error, and the phase fails.
+21. (Runs here, after 19, in a new session of the port's runtime.) A
+    ``num_gpus=1`` actor joins ``init_collective_group(1, 0,
+    backend="nccl")`` and sends a CUDA tensor through allreduce, broadcast,
+    allgather, reducescatter, barrier and ``allreduce_sharded`` over a
+    one-rank mesh (``local_mesh()``), each against numpy; the same call in
+    an actor that sees no card must raise.
+22. (The same session.) ``TorchTrainer.fit()`` with one GPU worker whose
+    loop builds ``create_mesh(MeshConfig(data=-1))`` over the trainer's
+    NCCL group and runs phase 7's 7B LoRA step on it (the adapters placed
+    by ``lora_logical_axes``, the frozen base by ``llama_logical_axes``):
+    3 steps with ``attn_impl="flash"``, 3 with ``attn_impl="ring_seq"``,
+    each against phase 7's first 3 within 1e-3 relative, K1 = 64 and K2 =
+    K3 = 32 a step; the step's wall and device time beside phases 7 and
+    9's, the worker's peak memory and the placements of a LoRA leaf, a
+    base leaf and an AdamW moment. Then every process of the session gone
+    and the card's memory back.
 10. Drive the dense training path: ``bench.py``'s second rung (~1.005B
     params: hidden 2048, mlp 5632, 17 layers, 16 heads of 128, fp32
     params, remat "dots", ``adafactor(1e-3)``) at full width and depth,
@@ -157,16 +181,22 @@ KERNEL_SHAPES = [
     (2, 16, 4, 256, 64, True, "bfloat16"),
     (1, 32, 32, 2048, 128, True, "bfloat16"),  # the 7B LoRA step's
     (4, 16, 16, 2048, 128, True, "bfloat16"),  # the dense 1B step's
+    (1, 32, 32, 2048, 128, False, "bfloat16"),  # a ring hop's, off-diagonal
 ]
 SERVE_SHAPE = KERNEL_SHAPES[0]
 TRAIN_SHAPE = (1, 32, 32, 2048, 128, True, "bfloat16")
 DENSE_SHAPE = (4, 16, 16, 2048, 128, True, "bfloat16")
+# an off-diagonal hop of ring attention at P=4 over S=8192, 7B attention
+# width: K1 without the mask; K2 and K3 at the same shape (the hops pass
+# the whole row's lse and delta, which changes no work)
+RING_HOP_SHAPE = (1, 32, 32, 2048, 128, False, "bfloat16")
 # K2 and K3: the training paths' shapes first (the 7B LoRA step at B=1,
 # S=2048, the dense 1B step at B=4, S=2048), then GQA, non-causal and fp32 /
 # D=64
 BWD_SHAPES = [
     TRAIN_SHAPE,
     DENSE_SHAPE,
+    RING_HOP_SHAPE,
     (1, 32, 8, 1024, 128, True, "bfloat16"),
     (2, 32, 32, 256, 128, False, "bfloat16"),
     (2, 16, 4, 256, 64, True, "float32"),
@@ -213,6 +243,17 @@ TOL_MLP_REL = 1e-4
 # sums that can differ between two processes, such as cuBLAS's choice of
 # algorithm), and the resumed step's loss against the continued one's
 TOL_TRAINER_REL = 1e-3
+# phase 22: the meshed step's losses and grad norms against phase 7's. The
+# same products on the same card, through DTensor at world size 1 (whose
+# ops call the same kernels on the local tensors), and ring_seq's one
+# diagonal hop is K1 on the whole sequence with an lse merge of one pair;
+# what can differ is the order of floating-point sums where DTensor or the
+# new process picks another cuBLAS algorithm, as in phase 19
+TOL_MESH_REL = 1e-3
+# phase 20: ring attention's schedule at P=4 over S=8192 (2048 a rank) at
+# Llama-2-7B attention width, bf16, causal, every rank's hops in this
+# process, against K1-K3 on the whole sequence
+RING_P, RING_B, RING_H, RING_S, RING_D = 4, 1, 32, 8192, 128
 N_TIMED = 30
 # where phases 10-18 run (the card; a CPU rehearsal of their control flow at
 # a tiny size may set "cpu")
@@ -472,6 +513,97 @@ def phase_bwd_kernels():
                                  f"{shape}: {errs}")
         records.append(rec)
     return records
+
+
+def ring_schedule_run(qs, ks, vs, dos):
+    """Every rank's hop schedule of ring attention, in this process: the
+    forward of each rank on its q chunk with the kv chunks in their ring
+    arrival order, then the backward with the whole row's lse and delta,
+    each hop's dk and dv summed into its source chunk. Returns (o, lse, dq,
+    dk, dv), each rank's chunks concatenated along the sequence."""
+    from ray_tpu_torch.ops import ring_attention as ra
+
+    P = len(qs)
+
+    def kv(r):
+        return [(ks[(r - j) % P], vs[(r - j) % P]) for j in range(P)]
+
+    outs = [ra.ring_fwd_schedule(qs[r], r, P, kv(r), True) for r in range(P)]
+    os_ = [o.to(qs[0].dtype) for o, _ in outs]
+    dk = [torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+          for k in ks]
+    dv = [torch.zeros_like(t) for t in dk]
+    dq = []
+    for r in range(P):
+        def add(j, a, b, r=r):
+            dk[(r - j) % P].add_(a)
+            dv[(r - j) % P].add_(b)
+        delta = fa._delta(os_[r], dos[r])
+        dq.append(ra.ring_bwd_schedule(qs[r], dos[r], outs[r][1], delta, r,
+                                       P, kv(r), True, add))
+    cat = lambda ts: torch.cat(ts, dim=2)  # noqa: E731
+    return (cat(os_), cat([lse for _, lse in outs]), cat(dq), cat(dk),
+            cat(dv))
+
+
+def phase_ring_schedule():
+    """Phase 20: ring attention's per-rank hop schedule for P = RING_P at
+    Llama-2-7B attention width (B=1, H=KVH=32, D=128, S=8192, 2048 a rank,
+    bf16, causal), every rank's chunks fed in this process: o and lse
+    against K1 on the whole sequence; dq, dk and dv, summed over the ranks,
+    against K2 and K3 on the whole sequence; K1 = K2 = K3 = P(P+1)/2
+    launches (the backward recomputes no forward); the schedule's time
+    beside the kernels' on the whole sequence. Returns the launches and the
+    times."""
+    P, B, H, S, D = RING_P, RING_B, RING_H, RING_S, RING_D
+    gen = torch.Generator(device=DEVICE).manual_seed(2020)
+    q, k, v, do = (torch.randn((B, S, H, D), generator=gen, device=DEVICE,
+                               dtype=torch.float32).to(torch.bfloat16)
+                   .transpose(1, 2) for _ in range(4))
+    o_ref, lse_ref = fa.flash_attention_fwd(q, k, v, True)
+    delta_ref = fa._delta(o_ref, do)
+    want = (o_ref, lse_ref,
+            fa.flash_attention_dq(q, k, v, do, lse_ref, delta_ref, True),
+            *fa.flash_attention_dkv(q, k, v, do, lse_ref, delta_ref, True))
+    chunks = [t.chunk(P, dim=2) for t in (q, k, v, do)]
+    reset_counts()
+    got = ring_schedule_run(*chunks)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    launches = counts()
+    hops = P * (P + 1) // 2
+    errs = {}
+    for name, g, w in zip(("o", "lse", "dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ring {name}: {tuple(g.shape)} against "
+                                 f"{tuple(w.shape)}, or not finite")
+        e = (g.float() - w.float()).abs().max().item()
+        errs[name] = e if name in ("o", "lse") else \
+            e / w.float().abs().max().item()
+    t_sched = cuda_ms(lambda: ring_schedule_run(*chunks), 5, 1)
+    t_fwd = cuda_ms(lambda: [fa.flash_attention_fwd(q, k, v, True)], 5, 1)
+    t_bwd = cuda_ms(lambda: (
+        fa.flash_attention_dq(q, k, v, do, lse_ref, delta_ref, True),
+        fa.flash_attention_dkv(q, k, v, do, lse_ref, delta_ref, True)), 5, 1)
+    tol_g = TOL_GRAD_REL["bfloat16"]
+    log(f"[20] ring schedule P={P}, B={B} H=KVH={H} S={S} ({S // P} a "
+        f"rank) D={D} bf16 causal, every rank in this process: max|o - K1 "
+        f"whole| {errs['o']:.3e} (tol {TOL_O['bfloat16']:g}), max|lse - "
+        f"K1's| {errs['lse']:.3e} (tol {TOL_LSE:g}); dq, dk, dv against K2, "
+        f"K3 on the whole sequence, / max|whole|: {errs['dq']:.3e}, "
+        f"{errs['dk']:.3e}, {errs['dv']:.3e} (tol {tol_g:g}); launches (K1, "
+        f"K2, K3) {launches} (want {hops} each: P(P+1)/2 hops, no forward "
+        f"recomputed); schedule forward + backward {t_sched:.3f} ms against "
+        f"K1 + K2 + K3 on the whole sequence {t_fwd + t_bwd:.3f} ms (K1 "
+        f"{t_fwd:.3f}, K2 + K3 {t_bwd:.3f})")
+    if errs["o"] > TOL_O["bfloat16"] or errs["lse"] > TOL_LSE or max(
+            errs[n] for n in ("dq", "dk", "dv")) > tol_g:
+        raise AssertionError(f"the ring schedule disagrees with the "
+                             f"kernels on the whole sequence: {errs}")
+    if DEVICE == "cuda" and launches != (hops, hops, hops):
+        raise AssertionError(f"ring launches {launches} != {hops} each")
+    return dict(launches=launches, ms=t_sched, whole_ms=t_fwd + t_bwd,
+                errs=errs)
 
 
 def serving_requests(cfg):
@@ -1267,6 +1399,289 @@ def phase_train_runtime(gen, card, inproc):
     return worker_launches, pred_launches[0]
 
 
+def phase_collective(on_card):
+    """Phase 21 (the runtime is up): a ``num_gpus=1`` actor runs
+    ``init_collective_group(1, 0, backend="nccl")`` and sends a CUDA tensor
+    through allreduce, broadcast, allgather, reducescatter, barrier and
+    ``allreduce_sharded`` over a one-rank mesh (``local_mesh()``); each
+    result against numpy. The same call in an actor that sees no card
+    must raise."""
+    import ray_tpu_torch
+
+    class Member:
+        def run(self, hide_card):
+            import os
+
+            if hide_card:  # before torch loads: this process sees no card
+                os.environ["CUDA_VISIBLE_DEVICES"] = ""
+            import numpy as np
+            import torch
+
+            from ray_tpu_torch.parallel.mesh import local_mesh
+            from ray_tpu_torch.util import collective as col
+
+            out = {"cuda": torch.cuda.is_available(), "pid": os.getpid(),
+                   "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+            try:
+                col.init_collective_group(1, 0, backend="nccl",
+                                          group_name="smoke")
+            except RuntimeError as e:
+                out["raised"] = str(e)
+                return out
+            dev = torch.device("cuda", torch.cuda.current_device())
+            x = torch.arange(8, dtype=torch.float32, device=dev) + 1
+            res = {}
+
+            def host(t):
+                return (t.device.type, t.cpu().numpy())
+
+            y = x.clone()
+            res["allreduce"] = (col.allreduce(y, "smoke") is y, host(y))
+            y = x.clone()
+            res["broadcast"] = (col.broadcast(y, 0, "smoke") is y, host(y))
+            res["allgather"] = [host(t) for t in col.allgather(x, "smoke")]
+            shards = [x.clone()]
+            res["reducescatter"] = (
+                col.reducescatter(shards, "smoke") is shards[0],
+                host(shards[0]))
+            col.barrier("smoke")
+            mesh = local_mesh()
+            res["mesh"] = (mesh.mesh_dim_names, tuple(map(int, mesh.shape)),
+                           mesh.device_type)
+            res["allreduce_sharded"] = host(col.allreduce_sharded(
+                x, mesh, "data", "smoke"))
+            res["allreduce_sharded_tensor_axis"] = host(
+                col.allreduce_sharded(x, mesh, "tensor", "smoke"))
+            out["results"] = res
+            out["nccl"] = ".".join(map(str, torch.cuda.nccl.version()))
+            col.destroy_collective_group("smoke")
+            return out
+
+    t0 = time.perf_counter()
+    gpu = ray_tpu_torch.remote(num_gpus=1 if on_card else 0)(Member).remote()
+    cpu = ray_tpu_torch.remote(num_gpus=0)(Member).remote()
+    got, hidden = ray_tpu_torch.get(
+        [gpu.run.remote(False), cpu.run.remote(True)], timeout=300)
+    secs = time.perf_counter() - t0
+    ray_tpu_torch.kill(gpu)
+    ray_tpu_torch.kill(cpu)
+    want = np.arange(8, dtype=np.float32) + 1
+    log(f"[21] collective group in a num_gpus=1 actor (pid {got['pid']}, "
+        f"CUDA_VISIBLE_DEVICES={got['visible']}, NCCL {got.get('nccl')}): "
+        f"{got.get('results', got.get('raised'))}; the same call where no "
+        f"card is visible (cuda {hidden['cuda']}): "
+        f"{hidden.get('raised', 'did not raise')!r}; {secs:.2f} s")
+    if not on_card:
+        return
+    r = got.get("results")
+    if r is None:
+        raise AssertionError(f"the NCCL group did not form: {got}")
+    ok = (all(r[k][0] and r[k][1][0] == "cuda"
+              and np.array_equal(r[k][1][1], want)
+              for k in ("allreduce", "broadcast", "reducescatter"))
+          and len(r["allgather"]) == 1 and r["allgather"][0][0] == "cuda"
+          and np.array_equal(r["allgather"][0][1], want)
+          and r["allreduce_sharded"][0] == "cuda"
+          and np.array_equal(r["allreduce_sharded"][1], want)
+          and np.array_equal(r["allreduce_sharded_tensor_axis"][1], want)
+          and r["mesh"] == (("data",), (1,), "cuda"))
+    if not ok:
+        raise AssertionError(f"a collective disagrees with numpy: {r}")
+    if hidden["cuda"] or "raised" not in hidden:
+        raise AssertionError(f"the NCCL backend did not raise without a "
+                             f"card: {hidden}")
+
+
+def phase_mesh_train(gen, card, inproc):
+    """Phase 22 (the runtime is up): ``TorchTrainer.fit()`` with one GPU
+    worker whose loop builds ``create_mesh(MeshConfig(data=-1))`` over the
+    trainer's NCCL group and runs phase 7's Llama-2-7B LoRA step on it: the
+    adapters placed by ``lora_logical_axes``, the frozen bf16 base (seed 0)
+    by ``frozen_logical_axes=llama_logical_axes(cfg)``, 3 steps with
+    ``attn_impl="flash"``, then 3 from the same state seed with
+    ``attn_impl="ring_seq"`` (one diagonal hop at world size 1). Losses and
+    grad norms against phase 7's first 3 within TOL_MESH_REL; K1 = 64 and
+    K2 = K3 = 32 a step on both; the step's wall (step 2) and device time
+    (step 3, profiled) beside phase 7's; the worker's peak memory; the
+    placements of a LoRA leaf, a base leaf and an AdamW moment. Returns
+    the worker's (K1, K2, K3) launches over both runs."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.train import (
+        FailureConfig, RunConfig, ScalingConfig, TorchTrainer)
+
+    cfg, lcfg, _ = train_setup(gen)
+    on_card = DEVICE == "cuda"
+
+    def loop(config):
+        import dataclasses
+        import os
+        import time
+
+        import torch
+        import torch.distributed as dist
+        from torch.profiler import ProfilerActivity, profile
+
+        from ray_tpu_torch import resolve_device, train
+        from ray_tpu_torch.models.llama import (
+            init_llama, init_lora, llama_logical_axes, llama_lora_loss,
+            lora_logical_axes)
+        from ray_tpu_torch.ops.cuda import _build
+        from ray_tpu_torch.ops.cuda import flash_attention as fa
+        from ray_tpu_torch.parallel import (
+            MeshConfig, adamw, create_mesh, create_train_state,
+            make_train_step)
+
+        dev = resolve_device(config["device"])
+        on = dev.type == "cuda"
+        if on:
+            for name in config["kernels"]:
+                _build.load(name)
+        mesh = create_mesh(MeshConfig(data=-1), device=dev)
+        tok = torch.tensor(config["tokens"], device=dev)
+        batch = {"inputs": tok[:, :-1], "targets": tok[:, 1:]}
+        base_cfg = config["base_cfg"]
+        g = torch.Generator(device=dev).manual_seed(0)
+        base = init_llama(dataclasses.replace(
+            base_cfg, param_dtype=base_cfg.dtype), g, dev)
+        lcfg = config["lcfg"]
+        info = {"pid": os.getpid(), "backend": dist.get_backend(),
+                "mesh": [list(mesh.mesh_dim_names),
+                         list(map(int, mesh.shape)), mesh.device_type]}
+        if on:
+            torch.cuda.reset_peak_memory_stats()
+        for impl in ("flash", "ring_seq"):
+            cfg = dataclasses.replace(config["cfg"], attn_impl=impl)
+            tx = adamw(1e-4)
+            state = create_train_state(
+                lambda gg: init_lora(cfg, lcfg, gg, gg.device), tx, mesh,
+                lora_logical_axes(cfg, lcfg), device=dev, seed=1)
+            step = make_train_step(
+                lambda lo, b, fz, cfg=cfg: llama_lora_loss(
+                    fz, lo, b, cfg, lcfg), tx, mesh,
+                batch_logical_axes=("batch", "seq"), frozen=base,
+                frozen_logical_axes=llama_logical_axes(cfg))
+            hist = []
+            for i in range(config["steps"]):
+                before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+                prof = None
+                if on:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == config["steps"] - 1 and on:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        state, m = step(state, batch)
+                        torch.cuda.synchronize()
+                else:
+                    state, m = step(state, batch)
+                loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+                ms = (time.perf_counter() - t0) * 1e3
+                device_ms = None if prof is None else sum(
+                    e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)) / 1e3
+                hist.append({"loss": loss, "grad_norm": gnorm, "ms": ms,
+                             "device_ms": device_ms, "launches": [
+                                 a - b for a, b in zip(
+                                     (fa.launches, fa.dq_launches,
+                                      fa.dkv_launches), before)]})
+            leaf = state.params["layers"]["wq"]["a"]
+            info[impl] = {
+                "history": hist,
+                "placements": {
+                    "lora wq.a": str(tuple(leaf.placements)),
+                    "base wq": str(tuple(
+                        step.frozen["layers"]["wq"].placements)),
+                    "adamw exp_avg of wq.a": str(tuple(
+                        state.opt_state.state[leaf]["exp_avg"].placements))}}
+            del state, step
+        info["max_mem"] = torch.cuda.max_memory_allocated() if on else 0
+        train.report(info)
+
+    loop_cfg = {"cfg": cfg, "lcfg": lcfg, "base_cfg": gen._cfg,
+                "tokens": train_tokens(cfg), "device": DEVICE,
+                "kernels": TENSOR_CORE_LIBS, "steps": TRAIN_STEPS}
+    storage = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    t_fit = time.time()
+    try:
+        result = TorchTrainer(
+            loop, train_loop_config=loop_cfg,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card),
+            run_config=RunConfig(
+                name="lora_7b_mesh", storage_path=storage,
+                failure_config=FailureConfig(max_failures=0))).fit()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    fit_s = time.time() - t_fit
+    if result.error is not None or result.restarts != 0:
+        raise AssertionError(f"fit: error {result.error!r}, restarts "
+                             f"{result.restarts}")
+    m = result.metrics
+    L = cfg.num_layers
+    per_step = (2 * L, L, L) if on_card else (0, 0, 0)
+    want = inproc["metrics"][:TRAIN_STEPS]
+    launches = [0, 0, 0]
+    for impl in ("flash", "ring_seq"):
+        hist = m[impl]["history"]
+        errs = [abs(a - b) / abs(b) for h, pair in zip(hist, want)
+                for a, b in zip((h["loss"], h["grad_norm"]), pair)]
+        log(f"[22] meshed 7B LoRA step, attn_impl={impl}, mesh "
+            f"{m['mesh']}, backend {m['backend']}: (loss, grad_norm) "
+            f"{[(round(h['loss'], 5), round(h['grad_norm'], 5)) for h in hist]}"
+            f" against phase 7's {[(round(a, 5), round(b, 5)) for a, b in want]}"
+            f": largest relative difference {max(errs):.3e} (tol "
+            f"{TOL_MESH_REL:g}); wall ms per step "
+            f"{[round(h['ms'], 1) for h in hist]} (step 1 fills DTensor's "
+            f"sharding caches, step {TRAIN_STEPS} is profiled), step 2 "
+            f"{hist[1]['ms']:.1f} ms against phase 7's "
+            f"{inproc['ms_step']:.1f}; device kernels "
+            f"{_ms_or_none(hist[-1]['device_ms'])} ms against phase 9's "
+            f"{_ms_or_none(inproc.get('device_ms'))}; launches per "
+            f"step {[tuple(h['launches']) for h in hist]}; placements "
+            f"{m[impl]['placements']}")
+        if len(errs) != 2 * TRAIN_STEPS or max(errs) > TOL_MESH_REL:
+            raise AssertionError(f"the meshed {impl} steps disagree with "
+                                 f"phase 7's")
+        if any(tuple(h["launches"]) != per_step for h in hist):
+            raise AssertionError(f"meshed {impl} launches per step != "
+                                 f"{per_step}")
+        for i in range(3):
+            launches[i] += sum(h["launches"][i] for h in hist)
+    log(f"[22] {card}: fit {fit_s:.2f} s; worker max memory allocated "
+        f"{m['max_mem'] / 2**30:.2f} GiB (phase 19's worker held the same "
+        f"step without the mesh)")
+    return launches, m
+
+
+def _ms_or_none(ms):
+    return "not measured" if ms is None else f"{ms:.1f}"
+
+
+def phase_mesh_runtime(gen, card, inproc):
+    """Phases 21 and 22 in one session of the port's runtime, then the
+    shutdown checks (every process gone, the card's memory back)."""
+    import ray_tpu_torch
+    from ray_tpu_torch._private import lifecycle
+
+    on_card = DEVICE == "cuda"
+    avail_before = _device_available() if on_card else 0
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1 if on_card else 0)
+    session_dir = ray_tpu_torch._global_node.session_dir
+    try:
+        phase_collective(on_card)
+        launches, m = phase_mesh_train(gen, card, inproc)
+    except BaseException:
+        _log_tail(session_dir, tag="22")
+        raise
+    finally:
+        procs = lifecycle.list_registered(session_dir)
+        ray_tpu_torch.shutdown()
+    _check_session_gone("22", session_dir, procs, avail_before, m["pid"],
+                        "train worker")
+    return launches
+
+
 def phase_grad_check(gen):
     """LoRA grads of a 2-layer cut of the 7B weights at B=1, S=2048, with B
     perturbed so that dA is not 0: through the kernels vs through the plain
@@ -1363,6 +1778,7 @@ def phase_train_profile(train):
             f"{k} {v:.1f} ms ({v / device_ms:.1%})" for k, v in
             kinds.items()) + f"; {kernels} kernel launches per step")
     log(f"[9] largest other kernels: {top_others(others)}")
+    return device_ms
 
 
 def dense_setup(num_layers=None):
@@ -1936,6 +2352,7 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     bwd = phase_bwd_kernels()
+    ring = phase_ring_schedule()
     reset_counts()
     serve_launches, gen, inproc = phase_main_path()
     if counts()[1:] != (0, 0):
@@ -1946,12 +2363,14 @@ def main() -> int:
     deploy_launches, _ = phase_serve_deployment(gen, inproc)
     train = phase_train(gen)
     phase_grad_check(gen)
-    phase_train_profile(train)
+    train_device_ms = phase_train_profile(train)
     train_launches = train["launches"]
     inproc_train = {k: train[k] for k in ("metrics", "ms_step")}
     del train  # the LoRA state and its step
     trainer_launches, predictor_launches = phase_train_runtime(
         gen, card, inproc_train)
+    mesh_launches = phase_mesh_runtime(
+        gen, card, dict(inproc_train, device_ms=train_device_ms))
     dense = phase_dense()
     phase_dense_grad_check()
     phase_decode(gen)
@@ -1973,6 +2392,8 @@ def main() -> int:
     k23 = {r["key"]: r for r in bwd}
     head, k1t, tb = k1[SERVE_SHAPE], k1[TRAIN_SHAPE], k23[TRAIN_SHAPE]
     k1_train, k1_dense = train_launches[0], dense["launches"][0]
+    ring_launches = ring["launches"]
+    hop = k23[RING_HOP_SHAPE]
     timing_keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                    "library_ms")
     kernels = [{
@@ -1981,14 +2402,17 @@ def main() -> int:
         "source": "ray_tpu_torch/ops/cuda/csrc/flash_attention_fwd.cu",
         "replaces": "ray_tpu/ops/pallas/flash_attention.py:110",
         "launches": (serve_launches + deploy_launches + k1_train
-                     + trainer_launches[0] + predictor_launches + k1_dense),
+                     + trainer_launches[0] + predictor_launches + k1_dense
+                     + ring_launches[0] + mesh_launches[0]),
         "launches_by_path": {"serve": serve_launches,
                              "serve_deployment": deploy_launches,
                              "train": k1_train,
                              "trainer": trainer_launches[0],
                              "predictor": predictor_launches,
                              "dense": k1_dense,
-                             "moe": moe_launches[0]},
+                             "moe": moe_launches[0],
+                             "ring_schedule": ring_launches[0],
+                             "mesh_train": mesh_launches[0]},
         "max_abs_err": max(r["err_o"] for r in records),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -1999,11 +2423,16 @@ def main() -> int:
         "shape": head["shape"],
         "train_shape": {key: k1t[key] for key in timing_keys},
         "dense_shape": {key: k1[DENSE_SHAPE][key] for key in timing_keys},
+        "ring_hop_shape": {key: k1[RING_HOP_SHAPE][key]
+                           for key in timing_keys},
+        "ring_schedule": {"ms": ring["ms"], "whole_sequence_ms":
+                          ring["whole_ms"], "errs": ring["errs"]},
     }]
     for i, kern, name, line in ((1, "dq", "flash_attention_dq", 275),
                                 (2, "dkv", "flash_attention_dkv", 303)):
         r = tb[kern]
-        n = train_launches[i] + trainer_launches[i] + dense["launches"][i]
+        n = (train_launches[i] + trainer_launches[i] + dense["launches"][i]
+             + ring_launches[i] + mesh_launches[i])
         dense_rec = dict(k23[DENSE_SHAPE][kern],
                          shape=k23[DENSE_SHAPE]["shape"],
                          library_ms=k23[DENSE_SHAPE]["library_ms"])
@@ -2016,7 +2445,9 @@ def main() -> int:
             "launches_by_path": {"train": train_launches[i],
                                  "trainer": trainer_launches[i],
                                  "dense": dense["launches"][i],
-                                 "moe": moe_launches[i]},
+                                 "moe": moe_launches[i],
+                                 "ring_schedule": ring_launches[i],
+                                 "mesh_train": mesh_launches[i]},
             "max_abs_err": max(b[kern]["abs_err"] for b in bwd),
             # the largest error relative to max|plain|, what the tolerance
             # holds, over every shape
@@ -2031,6 +2462,10 @@ def main() -> int:
             "library_ms": tb["library_ms"],
             "shape": tb["shape"],
             "dense_shape": {key: dense_rec[key] for key in timing_keys},
+            "ring_hop_shape": dict(
+                {key: hop[kern][key] for key in timing_keys
+                 if key in hop[kern]}, shape=hop["shape"],
+                library_ms=hop["library_ms"]),
         })
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,8 +16,13 @@ the reference leaves them to XLA.
 Incremental decode (``llama_decode``) writes each layer's new keys and values
 into the caller's kv cache in place, where the reference returns new arrays.
 
-Not ported yet: ``llama_logical_axes`` and the ring-attention layer
-(``attn_impl="ring_seq"``); both wait for the multi-GPU slice."""
+On a mesh the params are DTensors placed by :func:`llama_logical_axes` (and
+the adapters by :func:`lora_logical_axes`), and the same functions run on
+them: DTensor propagates the shardings through the products as GSPMD does,
+and the ``constrain`` calls sit where the reference's sit. Attention runs on
+each rank's local batch and head shards (``ops.attention``), and
+``attn_impl="ring_seq"`` splits the sequence over the mesh's ``seq`` axis
+(``ops.ring_attention``)."""
 
 from __future__ import annotations
 
@@ -27,11 +32,31 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ray_tpu_torch._private.tree import tree_from_numpy
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.parallel.sharding import (
+    ambient_mesh, as_replicated, compat_shard_map, constrain,
+    logical_to_spec, place_like)
+
+
+def _ring_seq_attention(q, k, v):
+    """Sequence-parallel exact attention: ``local_map`` over q's mesh (the
+    ambient one), q, k and v split on its ``seq`` axis; kv chunks ride the
+    ring (``ops.ring_attention``)."""
+    from ray_tpu_torch.ops.ring_attention import ring_attention
+
+    mesh = q.device_mesh if isinstance(q, DTensor) else ambient_mesh()
+    qs = logical_to_spec(("batch", "seq", "heads", "head_dim"))
+    fn = compat_shard_map(
+        functools.partial(ring_attention, axis_name="seq", causal=True,
+                          mesh=mesh),
+        mesh=mesh, in_specs=(qs, qs, qs), out_specs=qs, check_vma=False)
+    return fn(q, k, v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,7 +75,7 @@ class LlamaConfig:
     param_dtype: torch.dtype = torch.float32
     remat: bool = True             # checkpoint each layer (memory ↔ FLOPs)
     remat_policy: str = "dots"     # dots | full | mixed:K
-    attn_impl: str = "auto"                  # auto | flash | reference
+    attn_impl: str = "auto"        # auto | flash | reference | ring_seq
     loss_chunk: int = 0            # >0: lm-head CE in seq chunks of this size
     #   (peak logits memory B*chunk*V instead of B*S*V; the backward
     #    recomputes each chunk's logits under checkpoint)
@@ -138,6 +163,43 @@ _LORA_SHAPES = {
     "w_up": (("embed",), ("mlp",)),
     "w_down": (("mlp",), ("embed",)),
 }
+
+
+def lora_logical_axes(cfg: LlamaConfig, lcfg: LoraConfig) -> Dict:
+    """Rank dim stays unsharded (it is tiny); in/out dims shard like the
+    base weight they adapt so the activation-side products need no extra
+    resharding."""
+    del cfg
+    out = {}
+    for name in lcfg.targets:
+        in_ax, out_ax = _LORA_SHAPES[name]
+        out[name] = {"a": (None,) + in_ax + (None,),
+                     "b": (None, None) + out_ax}
+    return {"layers": out}
+
+
+def llama_logical_axes(cfg: LlamaConfig) -> Dict[str, Any]:
+    """Tree (same structure as params) of logical-axis tuples."""
+    del cfg
+    layer = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "w_gate": ("embed", "mlp"),
+        "w_up": ("embed", "mlp"),
+        "w_down": ("mlp", "embed"),
+        "attn_norm": ("norm",),
+        "mlp_norm": ("norm",),
+    }
+    # stacked layers carry a leading 'layers' dim — replicated (None)
+    layers = {k: (None,) + v for k, v in layer.items()}
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": layers,
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def _lora_dims(cfg: LlamaConfig):
@@ -258,8 +320,8 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     """x: [B, S, H, D]; rotate pairs (d, d + D/2) — llama convention."""
     d = x.shape[-1]
     half = d // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
+    freq = as_replicated(theta ** (-torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half), x)
     angles = positions[..., None].float() * freq  # [B,S,half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -299,6 +361,8 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
          + _ld("wv", h, "bsh,hr->bsr", "bsr,rnd->bsnd"))
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
+    q = constrain(q, ("batch", "seq", "heads", None))
+    k = constrain(k, ("batch", "seq", "kv_heads", None))
     if kv_cache is not None:
         ck, cv = kv_cache
         slots = _cache_slots(cache_index, q.shape[1], ck.shape[1], ck.device)
@@ -307,11 +371,10 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
         attn_out = attention(q, ck, cv, impl="reference", causal=True,
                              q_offset=cache_index)
     elif cfg.attn_impl == "ring_seq":
-        raise NotImplementedError(
-            "attn_impl='ring_seq' (sequence-parallel ring attention) is not "
-            "ported to ray_tpu_torch yet")
+        attn_out = _ring_seq_attention(q, k, v)
     else:
         attn_out = attention(q, k, v, impl=cfg.attn_impl, causal=True)
+    attn_out = constrain(attn_out, ("batch", "seq", "heads", None))
     x = (x + torch.einsum("bsnd,ndh->bsh", attn_out, lp["wo"].to(dt))
          + _ld("wo", attn_out, "bsnd,ndr->bsr", "bsr,rh->bsh"))
     # --- mlp (SwiGLU) ---
@@ -320,9 +383,10 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
             + _ld("w_gate", h, "bsh,hr->bsr", "bsr,rm->bsm"))
     up = (torch.einsum("bsh,hm->bsm", h, lp["w_up"].to(dt))
           + _ld("w_up", h, "bsh,hr->bsr", "bsr,rm->bsm"))
-    act = torch.nn.functional.silu(gate) * up
-    return (x + torch.einsum("bsm,mh->bsh", act, lp["w_down"].to(dt))
-            + _ld("w_down", act, "bsm,mr->bsr", "bsr,rh->bsh"))
+    act = constrain(F.silu(gate) * up, ("batch", "seq", "mlp"))
+    x = (x + torch.einsum("bsm,mh->bsh", act, lp["w_down"].to(dt))
+         + _ld("w_down", act, "bsm,mr->bsr", "bsr,rh->bsh"))
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def _cache_slots(cache_index: Union[int, torch.Tensor], n: int,
@@ -393,7 +457,7 @@ def llama_decode(
         positions = (torch.arange(S, device=tokens.device)
                      + torch.as_tensor(cache_index, device=tokens.device)
                      ).expand(B, S)
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = F.embedding(tokens, params["embed"]).to(cfg.dtype)
     layers = params["layers"]
     for i in range(cfg.num_layers):
         lp = {name: w[i] for name, w in layers.items()}
@@ -421,8 +485,16 @@ def llama_hidden(
     LoRA adapters (if given) are sliced alongside the base."""
     B, S = tokens.shape
     if positions is None:
-        positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x = params["embed"][tokens].to(cfg.dtype)
+        positions = place_like(
+            torch.arange(S, device=tokens.device).expand(B, S), tokens)
+    # F.embedding, not indexing: on a mesh, indexing a vocab-sharded table
+    # gathers the whole table and drops the batch sharding. The table's
+    # embed dim is gathered first (as fsdp gathers every weight): DTensor's
+    # lookup rule mis-sizes its vocab mask when the table and the batch
+    # share the fsdp axis
+    x = F.embedding(tokens, constrain(params["embed"], ("vocab", None))
+                    ).to(cfg.dtype)
+    x = constrain(x, ("batch", "seq", "embed"))
     scale = lora_cfg.scale if lora_cfg is not None else 0.0
     # per-layer views through one ``unbind`` per leaf: its backward stacks
     # the layers' grads once, as the reference's scan writes them, where
@@ -470,7 +542,16 @@ def _nll_from_logits(logits: torch.Tensor,
     the same."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    target_logit = logits.gather(-1, targets[..., None].long()).squeeze(-1)
+    if isinstance(logits, DTensor):
+        # on a mesh, the reference's iota-compare and masked sum: DTensor's
+        # gather over a vocab-sharded dim builds a mask it cannot apply
+        vocab_ids = as_replicated(
+            torch.arange(logits.shape[-1], device=logits.device), logits)
+        target_logit = torch.where(vocab_ids == targets[..., None], logits,
+                                   0.0).sum(-1)
+    else:
+        target_logit = logits.gather(-1, targets[..., None].long()
+                                     ).squeeze(-1)
     return lse - target_logit
 
 
@@ -490,8 +571,7 @@ def _chunked_ce(x, lm_head, targets, mask, chunk, dtype):
         raise ValueError(f"seq {S} not divisible by loss_chunk {chunk}")
     mask = (torch.ones_like(targets, dtype=torch.float32) if mask is None
             else mask.to(torch.float32))
-    tot = torch.zeros((), dtype=torch.float32, device=x.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    tot = cnt = 0.0
     for c0 in range(0, S, chunk):
         args = (x[:, c0:c0 + chunk], lm_head, targets[:, c0:c0 + chunk],
                 mask[:, c0:c0 + chunk], dtype)

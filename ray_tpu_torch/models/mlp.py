@@ -4,8 +4,7 @@ Port of ``ray_tpu/models/mlp.py``: params are a dictionary of tensors in the
 reference's layout (the hidden layers stacked, ``w_hidden`` [n, hidden,
 hidden]), the forward a function of (params, x). The reference's
 ``lax.scan`` over the hidden layers is a Python loop here.
-
-Not ported: ``mlp_logical_axes``, which waits for the multi-GPU slice.
+:func:`mlp_logical_axes` names each leaf's logical axes for the mesh.
 """
 
 from __future__ import annotations
@@ -27,6 +26,20 @@ class MLPConfig:
     out_dim: int = 10
     num_layers: int = 2
     dtype: torch.dtype = torch.float32
+
+
+def mlp_logical_axes(cfg: MLPConfig) -> Dict[str, Any]:
+    """The logical axes of each leaf, the JAX package's (the params' tree
+    of tuples)."""
+    del cfg
+    return {
+        "w_in": ("embed", "mlp"),
+        "b_in": ("mlp",),
+        "w_hidden": (None, "mlp", "mlp"),
+        "b_hidden": (None, "mlp"),
+        "w_out": ("mlp", None),
+        "b_out": (None,),
+    }
 
 
 def init_mlp(cfg: MLPConfig, generator: torch.Generator,

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 _NEG_INF = -1e30
 
@@ -59,7 +60,15 @@ def attention(
 ) -> torch.Tensor:
     """impl: auto (the flash kernel for CUDA tensors when shapes allow, else
     reference), flash, blockwise (a loop over kv blocks, memory-efficient
-    forward and backward), reference."""
+    forward and backward), reference.
+
+    DTensor q, k, v (a mesh's activations) run through ``local_map`` on each
+    rank's local batch and head shards, the sequence whole (a sequence split
+    over ranks is ``attn_impl="ring_seq"``'s): the kernels see plain
+    tensors."""
+    if isinstance(q, DTensor):
+        return _local_attention(q, k, v, impl=impl, causal=causal,
+                                q_offset=q_offset, valid_kv_len=valid_kv_len)
     if impl == "auto":
         use_flash = (
             q.device.type == "cuda" and q_offset is None
@@ -84,3 +93,22 @@ def attention(
             "auto|flash|blockwise|reference")
     return reference_attention(q, k, v, causal=causal, q_offset=q_offset,
                                valid_kv_len=valid_kv_len)
+
+
+def _local_attention(q, k, v, *, impl, causal, q_offset, valid_kv_len):
+    """:func:`attention` on the local shards of DTensors: q on ("batch",
+    None, "heads", None), k and v on ("batch", None, "kv_heads", None), the
+    output on q's spec. Contiguous head shards keep each kv head with its
+    query group."""
+    from ray_tpu_torch.parallel.sharding import (
+        compat_shard_map, logical_to_spec)
+
+    if q_offset is not None or valid_kv_len is not None:
+        raise NotImplementedError(
+            "q_offset/valid_kv_len (cached decode) do not run on a mesh")
+    qs = logical_to_spec(("batch", None, "heads", None))
+    ks = logical_to_spec(("batch", None, "kv_heads", None))
+    fn = compat_shard_map(
+        lambda q, k, v: attention(q, k, v, impl=impl, causal=causal),
+        mesh=q.device_mesh, in_specs=(qs, ks, ks), out_specs=qs)
+    return fn(q, k, v)

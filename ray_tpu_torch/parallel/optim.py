@@ -15,8 +15,10 @@ from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch._private.tree import tree_leaves
+from ray_tpu_torch.parallel.sharding import as_replicated
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
@@ -47,6 +49,14 @@ def factored_dims(shape: Tuple[int, ...], factored: bool = True,
     return int(order[-2]), int(order[-1])
 
 
+def _placed_as(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` redistributed to ``like``'s placements (DTensors on a mesh: a
+    row or column mean of a sharded grad into its replicated moment)."""
+    if isinstance(like, DTensor) and t.placements != like.placements:
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
+
+
 def _rms(t: torch.Tensor) -> torch.Tensor:
     """The root mean square of a whole leaf, fp32, as a 0-dim tensor."""
     return torch.linalg.vector_norm(t, dtype=torch.float32) / math.sqrt(
@@ -58,7 +68,8 @@ class _Adafactor(torch.optim.Optimizer):
     second-moment scaling, block-RMS clipping, the learning rate, the
     parameter-RMS scale, momentum, weight decay, and the descent sign. State
     (``v_row``/``v_col`` or ``v``, ``ema``) is fp32 whatever the param
-    type."""
+    type. For a DTensor param, ``v`` and ``ema`` take its placements and
+    ``v_row``/``v_col`` are replicated."""
 
     def __init__(self, params, lr, min_dim_size_to_factor, decay_rate,
                  decay_offset, multiply_by_parameter_scale,
@@ -86,17 +97,19 @@ class _Adafactor(torch.optim.Optimizer):
                              group["min_dim_size_to_factor"])
         if not st:
             st["step"] = 0
-            f32 = dict(dtype=torch.float32, device=p.device)
+            # shaped like p: p's placements on a mesh; the factored moments
+            # are of lower rank and replicated, as the JAX rule places them
             if dims is None:
-                st["v"] = torch.zeros(p.shape, **f32)
+                st["v"] = torch.zeros_like(p, dtype=torch.float32)
             else:
                 d1, d0 = dims
-                st["v_row"] = torch.zeros(
-                    [n for i, n in enumerate(p.shape) if i != d0], **f32)
-                st["v_col"] = torch.zeros(
-                    [n for i, n in enumerate(p.shape) if i != d1], **f32)
+                f32 = dict(dtype=torch.float32, device=p.device)
+                st["v_row"] = as_replicated(torch.zeros(
+                    [n for i, n in enumerate(p.shape) if i != d0], **f32), p)
+                st["v_col"] = as_replicated(torch.zeros(
+                    [n for i, n in enumerate(p.shape) if i != d1], **f32), p)
             if group["momentum"] is not None:
-                st["ema"] = torch.zeros(p.shape, **f32)
+                st["ema"] = torch.zeros_like(p, dtype=torch.float32)
         # the decay 1 - t**-decay_rate, t counted from 1 at the first update
         # (in fp32, as optax's _decay_rate_pow)
         t = np.float32(st["step"] - group["decay_offset"] + 1)
@@ -108,10 +121,12 @@ class _Adafactor(torch.optim.Optimizer):
             u = g * v.rsqrt()
         else:
             d1, d0 = dims
-            v_row = st["v_row"].mul_(decay).add_(grad_sqr.mean(dim=d0),
-                                                 alpha=1.0 - decay)
-            v_col = st["v_col"].mul_(decay).add_(grad_sqr.mean(dim=d1),
-                                                 alpha=1.0 - decay)
+            v_row = st["v_row"].mul_(decay).add_(
+                _placed_as(grad_sqr.mean(dim=d0), st["v_row"]),
+                alpha=1.0 - decay)
+            v_col = st["v_col"].mul_(decay).add_(
+                _placed_as(grad_sqr.mean(dim=d1), st["v_col"]),
+                alpha=1.0 - decay)
             row_col_mean = v_row.mean(dim=d1 - 1 if d1 > d0 else d1,
                                       keepdim=True)
             u = (g * (v_row / row_col_mean).rsqrt().unsqueeze(d0)
