@@ -122,6 +122,24 @@ Phases, in order; any failure raises and the exit code is not 0:
 17. Check the MoE on the card against the CPU: ``_moe_ffn`` at full width
     on layer 0's weights (the routing, the capacity drops, y and aux), and 3
     AdamW steps of a narrow fp32 MoE on both.
+23. Expert parallelism at phase 16's size, after phase 16's state is
+    freed: a world-size-1 NCCL group in this process, the MoE's params
+    placed by ``moe_logical_axes`` on ``create_mesh(MeshConfig(data=-1,
+    expert=1))``, 3 AdamW steps through DTensor equal to phase 16's first 3
+    (every placement is replicated on one card, so no expert collective
+    runs here: the CPU tests hold them on 4 and 8 gloo ranks).
+24. The GPipe pipeline at Llama-2-7B width: ``make_pipeline_train_step``
+    over 4 stages of one decoder layer each (fp32 params, bf16
+    activations), 4 microbatches of B=1 x 2048, ``adamw(1e-3)``, every
+    stage's ticks in this process: the output and grads equal to the 4
+    layers applied in sequence through the same kernels, K1 = 16 a forward
+    (the idle ticks skipped), 1 + 3 steps with K1 = K2 = K3 = 16 a step,
+    ms/step and device ms.
+25. ``PPOLearner`` on the card (fp32, TF32 off) against the CPU learner
+    from the same params on the dry run's batch (obs 8, 4 actions, B=16).
+26. The port's multichip entry at one rank: ``dryrun_multichip(1)``, its
+    tiny-mesh section in a spawned NCCL rank on the card, then the two
+    process gates over gloo on the CPU.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -2175,7 +2193,8 @@ def phase_moe():
     """The MoE train step at Mixtral-8x7B width, 2 layers: fp32 params drawn
     on the card, adamw(1e-3); one warm-up and MOE_STEPS timed steps, the
     routing after them, then one profiled step. Returns (K1, K2, K3
-    launches over the warm-up and timed steps, the params)."""
+    launches over the warm-up and timed steps, the params, the (loss, grad
+    norm) of the warm-up and timed steps)."""
     cfg = MOE_CFG
     tok = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (MOE_B, MOE_S + 1))
@@ -2262,7 +2281,7 @@ def phase_moe():
         f"attributed to an operator); {kernels} kernel launches per step")
     log("[16] largest other operators: " + "; ".join(
         f"{t:.1f} ms in {n} x {key[:110]}" for t, n, key in others))
-    return dict(launches=launches, params=state.params)
+    return dict(launches=launches, params=state.params, metrics=metrics)
 
 
 def phase_moe_check(params):
@@ -2342,6 +2361,299 @@ def phase_moe_check(params):
         raise AssertionError(f"the MoE loss did not fall: {got}")
 
 
+# phase 23: the MoE step on a world-size-1 (data, expert) mesh against phase
+# 16's in-process steps. Every placement is replicated at world size 1, so
+# DTensor runs the same kernels on the same local tensors as phase 16 (phase
+# 22 saw bit-equal losses for the Llama step): equal up to the order of
+# floating-point sums, where DTensor's decomposition or a new cuBLAS
+# algorithm choice could differ
+TOL_MOE_EP_REL = 1e-5
+# phase 24: the GPipe pipeline of 4 Llama-2-7B decoder layers (one a stage),
+# 4 microbatches of B=1 x PIPE_S, bf16 activations, fp32 params, adamw(1e-3)
+PIPE_STAGES, PIPE_M, PIPE_S, PIPE_STEPS = 4, 4, 2048, 3
+PIPE_CFG = dataclasses.replace(LlamaConfig.llama2_7b(),
+                               num_layers=PIPE_STAGES, max_seq_len=PIPE_S)
+# the pipeline's output and grads against the same 4 layers applied in
+# sequence to each microbatch through the same kernels: the same operations
+# on the same inputs (bit-equal expected); the grads of the fp32 params sum
+# the 4 microbatches' contributions, which autograd may add in another order
+# (1e-6 relative in fp32). A wrong stage order or a lost microbatch moves
+# entries by their own size
+TOL_PIPE_Y_REL, TOL_PIPE_GRAD_REL = 1e-2, 1e-4
+# phase 25: PPOLearner on the card (fp32, TF32 off) against the CPU learner
+# from the same params and batch: sums in other orders (~1e-6), as the CPU
+# tests hold the port to JAX; scalars of cancelling terms against 0.1
+TOL_PPO, TOL_PPO_UPDATE = 1e-5, 1e-3
+
+
+def phase_moe_ep(inproc_metrics):
+    """Phase 23: expert parallelism at Mixtral-8x7B width (MOE_CFG: 2
+    layers), after phase 16's state is freed: a world-size-1 NCCL group in
+    this process (``local_mesh()``), ``create_mesh(MeshConfig(data=-1,
+    expert=1))`` over it, the params drawn as phase 16 draws them (seed 0,
+    on the card) and placed by ``moe_logical_axes``, the batch by
+    ("batch", "seq"); 3 AdamW steps whose (loss, grad norm) must equal phase
+    16's first 3 within TOL_MOE_EP_REL. One card runs none of the expert
+    collectives: their multi-rank proof is the CPU tests
+    (tests/test_torch_moe_ep.py, 4 and 8 gloo ranks). Returns the K1-K3
+    launches (0: the MoE's attention is the reference)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.moe import moe_logical_axes
+    from ray_tpu_torch.parallel import local_mesh
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    cfg = MOE_CFG
+    tok = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_B, MOE_S + 1))
+    tok = torch.from_numpy(tok).to(DEVICE)
+    batch = {"inputs": tok[:, :-1], "targets": tok[:, 1:]}
+    local_mesh(device=DEVICE)
+    try:
+        mesh = create_mesh(MeshConfig(data=-1, expert=1), device=DEVICE)
+        tx = adamw(1e-3)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        state = create_train_state(lambda g: init_moe(cfg, g, g.device), tx,
+                                   mesh, moe_logical_axes(cfg), seed=0)
+        step = make_train_step(lambda p, b: moe_loss(p, b, cfg), tx, mesh,
+                               batch_logical_axes=("batch", "seq"))
+        metrics, walls = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        launches = counts()
+        placements = {k: [str(p) for p in v.placements]
+                      for k, v in state.params["layers"].items()
+                      if k in ("we_gate", "router", "wq")}
+        max_mem = torch.cuda.max_memory_allocated() / 2**30
+        del state, step
+    finally:
+        dist.destroy_process_group()
+    want = inproc_metrics[:3]
+    errs = [max(abs(a - c) / abs(c), abs(b - d) / abs(d))
+            for (a, b), (c, d) in zip(metrics, want)]
+    log(f"[23] MoE on a world-size-1 mesh "
+        f"{dict(zip(mesh.mesh_dim_names, mesh.shape))} (MoE widths as phase 16, {cfg.num_layers} layers, B={MOE_B} "
+        f"S={MOE_S}, adamw(1e-3), moe_logical_axes): (loss, grad_norm) "
+        f"{[(round(a, 6), round(b, 6)) for a, b in metrics]} against phase "
+        f"16's {[(round(a, 6), round(b, 6)) for a, b in want]}, max "
+        f"relative difference {max(errs):.2e} (tol {TOL_MOE_EP_REL:g}); "
+        f"wall per step {[round(w, 1) for w in walls]} ms (host clock, "
+        f"step 1 with the first DTensor dispatch); placements {placements}; "
+        f"launches K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}; "
+        f"max memory allocated {max_mem:.2f} GiB")
+    if not all(np.isfinite(v) for pair in metrics for v in pair) or \
+            max(errs) > TOL_MOE_EP_REL:
+        raise AssertionError("the MoE step on the mesh disagrees with "
+                             "phase 16's")
+    if launches != (0, 0, 0):
+        raise AssertionError(f"the MoE step launched flash kernels "
+                             f"{launches}")
+    return launches
+
+
+def pipeline_setup():
+    """The pipeline's 4 stages: 4 Llama-2-7B decoder layers (fp32 params,
+    bf16 activations) drawn on the card from seed 3, stacked on the stage
+    dim; the stage function (``_layer`` at positions 0..PIPE_S-1); inputs
+    [PIPE_M, PIPE_S, hidden] in the activation type and fp32 targets from
+    numpy seed 4."""
+    from ray_tpu_torch.models.llama import _layer
+
+    cfg = PIPE_CFG
+    gen_ = torch.Generator(device=DEVICE).manual_seed(3)
+    params = init_llama(cfg, gen_, torch.device(DEVICE))["layers"]
+    params = {k: v.requires_grad_(True) for k, v in params.items()}
+    positions = torch.arange(PIPE_S, device=DEVICE).expand(1, PIPE_S)
+
+    def stage_fn(p, h):
+        return _layer(cfg, h, p, positions)
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(
+        (PIPE_M, PIPE_S, cfg.hidden), dtype=np.float32)).to(
+        DEVICE, cfg.dtype)
+    tgt = torch.from_numpy(rng.standard_normal(
+        (PIPE_M, PIPE_S, cfg.hidden), dtype=np.float32)).to(DEVICE)
+    return cfg, params, stage_fn, x, tgt
+
+
+def _pipe_loss(y, t):
+    return torch.mean((y.float() - t) ** 2)
+
+
+def phase_pipeline():
+    """Phase 24: ``make_pipeline_train_step`` over 4 stages of Llama-2-7B
+    decoder layers, every stage's ticks in this process (no mesh: the card
+    holds every stage), 4 microbatches of B=1 x 2048, bf16 activations,
+    adamw(1e-3). (a) ``pipeline_apply``'s output and the grads of the loss
+    against the 4 layers applied in sequence to each microbatch through the
+    same kernels; K1 = 16 a forward (4 stages x 4 microbatches: the idle
+    ticks are skipped). (b) 1 + PIPE_STEPS steps: finite losses, K1 = K2 =
+    K3 = 16 a step (no remat), ms per step (host clock and CUDA events),
+    and one profiled step's device time by kind of kernel. Returns the
+    K1-K3 launches of the counted steps."""
+    from ray_tpu_torch.parallel.pipeline import (
+        gpipe_ticks, make_pipeline_train_step, pipeline_apply)
+
+    cfg, params, stage_fn, x, tgt = pipeline_setup()
+    n_params = sum(v.numel() for v in params.values())
+    torch.cuda.reset_peak_memory_stats()
+    # (a) against the stages in sequence
+    reset_counts()
+    y = pipeline_apply(stage_fn, params, x, None, num_microbatches=PIPE_M)
+    fwd_launches = counts()
+    _pipe_loss(y, tgt).backward()
+    grads = {k: v.grad.clone() for k, v in params.items()}
+    for v in params.values():
+        v.grad = None
+    ys = []
+    for m in range(PIPE_M):
+        h = x[m:m + 1]
+        for s in range(PIPE_STAGES):
+            h = stage_fn({k: v[s] for k, v in params.items()}, h)
+        ys.append(h)
+    y_seq = torch.cat(ys)
+    _pipe_loss(y_seq, tgt).backward()
+    y_err = ((y.float() - y_seq.float()).abs().max()
+             / y_seq.float().abs().max()).item()
+    g_err = max(((grads[k] - v.grad).norm() / v.grad.norm()).item()
+                for k, v in params.items())
+    for v in params.values():
+        v.grad = None
+    del y, y_seq, ys, grads
+    log(f"[24] pipeline of {PIPE_STAGES} Llama layers (hidden {cfg.hidden}, "
+        f"mlp {cfg.mlp_hidden}, {cfg.num_heads} heads of {cfg.head_dim}; "
+        f"{n_params / 1e6:.1f} M fp32 params), {PIPE_M} microbatches of B=1 x {PIPE_S}, "
+        f"{len(gpipe_ticks(PIPE_STAGES, PIPE_M))} ticks: output against the "
+        f"layers in sequence, max|dy| / max|y| {y_err:.3e} (tol "
+        f"{TOL_PIPE_Y_REL:g}); grads, largest |dg| / |g| over the leaves "
+        f"{g_err:.3e} (tol {TOL_PIPE_GRAD_REL:g}); K1 launches a forward "
+        f"{fwd_launches[0]}")
+    if not (y_err <= TOL_PIPE_Y_REL and g_err <= TOL_PIPE_GRAD_REL):
+        raise AssertionError("the pipeline disagrees with the layers in "
+                             "sequence")
+    if fwd_launches != (PIPE_STAGES * PIPE_M, 0, 0):
+        raise AssertionError(f"pipeline forward launches {fwd_launches}, "
+                             f"want ({PIPE_STAGES * PIPE_M}, 0, 0)")
+    # (b) the train step
+    tx = adamw(1e-3)
+    step = make_pipeline_train_step(stage_fn, _pipe_loss, tx, None, params,
+                                    num_microbatches=PIPE_M)
+    carry = (params, tx(params))
+    reset_counts()
+    t0 = time.perf_counter()
+    carry, m = step(carry, (x, tgt))
+    losses = [m["loss"].item()]
+    warm_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    timed = []
+    for _ in range(PIPE_STEPS):
+        carry, m = step(carry, (x, tgt))
+        timed.append(m["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / PIPE_STEPS * 1e3
+    event_ms = start.elapsed_time(end) / PIPE_STEPS
+    launches = counts()
+    losses += [t.item() for t in timed]
+    max_mem = torch.cuda.max_memory_allocated() / 2**30
+    per_step = tuple(n / (1 + PIPE_STEPS) for n in launches)
+    # one more step under the profiler (its launches are not counted)
+    kinds, device_ms, kernels, _ = step_profile(
+        {"step": step, "state": carry, "batch": (x, tgt)})
+    log(f"[24] pipeline train step, adamw(1e-3): losses "
+        f"{[round(v, 6) for v in losses]}; first step {warm_s:.2f} s; "
+        f"{wall:.1f} ms/step (host clock), {event_ms:.1f} ms/step (CUDA "
+        f"events), {PIPE_M * PIPE_S / wall * 1e3:.0f} tokens/s through "
+        f"the {PIPE_STAGES} layers; launches a step K1 {per_step[0]:g}, K2 "
+        f"{per_step[1]:g}, K3 {per_step[2]:g}; max memory allocated "
+        f"{max_mem:.2f} GiB; a profiled step's device time {device_ms:.1f} "
+        f"ms (busy {min(device_ms / wall, 1.0):.1%} of the timed wall) in "
+        f"{kernels} launches: " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in kinds.items()))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite pipeline loss: {losses}")
+    want = (PIPE_STAGES * PIPE_M,) * 3
+    if per_step != tuple(float(n) for n in want):
+        raise AssertionError(f"pipeline launches a step {per_step}, want "
+                             f"{want}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the pipeline loss did not fall: {losses}")
+    return launches
+
+
+def phase_ppo():
+    """Phase 25: ``PPOLearner`` on the card (fp32, TF32 off) against the
+    CPU learner with the same params (the card's, copied) on the same batch:
+    the dry run's obs_dim=8, action_dim=4, B=16; the first minibatch's loss
+    metrics, one update's metrics and the params after it."""
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec
+
+    spec = RLModuleSpec(obs_dim=8, action_dim=4, discrete=True)
+    cfg = {"lr": 3e-4, "num_epochs": 1, "seed": 0}
+    rng = np.random.default_rng(0)
+    B = 16
+    batch = {"obs": rng.normal(size=(B, 8)).astype(np.float32),
+             "actions": rng.integers(0, 4, B).astype(np.int32),
+             "logp": np.full(B, -1.3, np.float32),
+             "advantages": rng.normal(size=B).astype(np.float32),
+             "value_targets": rng.normal(size=B).astype(np.float32)}
+    card = PPOLearner(spec, dict(cfg), device=DEVICE)
+    host = PPOLearner(spec, dict(cfg), device="cpu")
+    host.set_weights(card.get_weights())
+    first = {}
+    for name, lrn in (("card", card), ("cpu", host)):
+        m = lrn.compute_grads(lrn._batch(batch))
+        first[name] = {k: float(v) for k, v in m.items()}
+    w0 = card.get_weights()
+    upd = {"card": card.update(batch), "cpu": host.update(batch)}
+    errs = {k: abs(first["card"][k] - v) / max(abs(v), 0.1)
+            for k, v in first["cpu"].items()}
+    errs.update({f"update {k}": abs(upd["card"][k] - v) / max(abs(v), 0.1)
+                 for k, v in upd["cpu"].items()})
+    # each leaf's distance from the CPU's against the norm of its update
+    # (Adam's first step is about lr * sign(g): an entry whose gradient is
+    # near 0 can step another way on the two, as in the CPU tests)
+    p_err = max(((a - b).norm() / (b - c).norm()).item() for a, b, c in zip(
+        tree_leaves(card.get_weights()), tree_leaves(host.get_weights()),
+        tree_leaves(w0)))
+    log(f"[25] PPOLearner (obs 8, 4 actions, B={B}) on {card.device} "
+        f"against the CPU: first minibatch {first['card']} vs "
+        f"{first['cpu']}; update {upd['card']} vs {upd['cpu']}; largest "
+        f"relative difference {max(errs.values()):.2e} (tol {TOL_PPO:g}); "
+        f"params after the update, largest |p_card - p_cpu| / |update| over "
+        f"the leaves {p_err:.2e} (tol {TOL_PPO_UPDATE:g})")
+    if max(errs.values()) > TOL_PPO or not all(
+            np.isfinite(v) for v in upd["card"].values()):
+        raise AssertionError("PPOLearner on the card disagrees with the CPU")
+    if p_err > TOL_PPO_UPDATE:
+        raise AssertionError(f"the params after the update differ by "
+                             f"{p_err} of the update")
+
+
+def phase_dryrun():
+    """Phase 26: the port's multichip entry at one rank on the card,
+    ``dryrun_multichip(1)``: its tiny-mesh section (a full train step of the
+    tiny Llama on a one-rank NCCL mesh in a spawned rank process), then the
+    two process gates over gloo on the CPU (4 rank processes each)."""
+    from ray_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    names = [n for n, _ in dryrun_multichip(1, device=DEVICE)["sections"]]
+    log(f"[26] dryrun_multichip(1): sections {names} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if names != ["tiny-4d-mesh", "two-process-mesh", "two-slice-dcn"]:
+        raise AssertionError(f"dryrun_multichip(1) ran {names}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2385,6 +2697,16 @@ def main() -> int:
     moe_run = phase_moe()
     phase_moe_check(moe_run.pop("params"))
     moe_launches = moe_run["launches"]
+    gc.collect()  # phase 16's params: phase 23 draws them anew
+    torch.cuda.empty_cache()
+    moe_ep_launches = phase_moe_ep(moe_run["metrics"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe_launches = phase_pipeline()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_ppo()
+    phase_dryrun()
 
     # K1 at the serving path's B=4, S=128 (its headline numbers) and at the
     # training paths' B=1 and B=4, S=2048; K2 and K3 at the training shapes
@@ -2403,7 +2725,8 @@ def main() -> int:
         "replaces": "ray_tpu/ops/pallas/flash_attention.py:110",
         "launches": (serve_launches + deploy_launches + k1_train
                      + trainer_launches[0] + predictor_launches + k1_dense
-                     + ring_launches[0] + mesh_launches[0]),
+                     + ring_launches[0] + mesh_launches[0]
+                     + pipe_launches[0]),
         "launches_by_path": {"serve": serve_launches,
                              "serve_deployment": deploy_launches,
                              "train": k1_train,
@@ -2412,7 +2735,9 @@ def main() -> int:
                              "dense": k1_dense,
                              "moe": moe_launches[0],
                              "ring_schedule": ring_launches[0],
-                             "mesh_train": mesh_launches[0]},
+                             "mesh_train": mesh_launches[0],
+                             "moe_expert_mesh": moe_ep_launches[0],
+                             "pipeline": pipe_launches[0]},
         "max_abs_err": max(r["err_o"] for r in records),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -2432,7 +2757,7 @@ def main() -> int:
                                 (2, "dkv", "flash_attention_dkv", 303)):
         r = tb[kern]
         n = (train_launches[i] + trainer_launches[i] + dense["launches"][i]
-             + ring_launches[i] + mesh_launches[i])
+             + ring_launches[i] + mesh_launches[i] + pipe_launches[i])
         dense_rec = dict(k23[DENSE_SHAPE][kern],
                          shape=k23[DENSE_SHAPE]["shape"],
                          library_ms=k23[DENSE_SHAPE]["library_ms"])
@@ -2447,7 +2772,9 @@ def main() -> int:
                                  "dense": dense["launches"][i],
                                  "moe": moe_launches[i],
                                  "ring_schedule": ring_launches[i],
-                                 "mesh_train": mesh_launches[i]},
+                                 "mesh_train": mesh_launches[i],
+                                 "moe_expert_mesh": moe_ep_launches[i],
+                                 "pipeline": pipe_launches[i]},
             "max_abs_err": max(b[kern]["abs_err"] for b in bwd),
             # the largest error relative to max|plain|, what the tolerance
             # holds, over every shape

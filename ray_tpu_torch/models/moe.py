@@ -9,9 +9,21 @@ dense [C, H] × [H, M] product. Products are ``torch.einsum`` in ``cfg.dtype``
 on the weights cast at each product, as the reference leaves them to XLA;
 attention is the plain reference path, as in the reference.
 
-The reference's ``constrain`` calls are left out: they are no-ops without a
-mesh. Not ported yet: ``moe_logical_axes`` and the dispatch and combine as
-an all_to_all over the ``expert`` axis, which wait for expert parallelism.
+Expert parallelism: :func:`moe_logical_axes` places the expert FFN stacks
+on the mesh's ``expert`` axis (their leading expert dim), and the
+``constrain`` calls sit where the reference's sit. On a mesh the params and
+the batch are DTensors (``parallel.train_step``), and DTensor's sharding
+propagation plays GSPMD's part: the routing needs each token's whole expert
+row, so the expert-sharded router logits are gathered before the softmax
+and ``topk`` (which then run alike on every expert rank); the dispatch
+einsum gives ``expert_in`` [E, B, C, H], which ``constrain`` cuts along E
+(each expert rank keeps its own experts' slots, no communication: under the
+default rules the batch rides ``data`` and ``fsdp``, not ``expert``); each
+rank runs its experts' products; and the combine contracts over E, a sum
+over the ``expert`` axis, which DTensor leaves partial until the residual
+add reduces it. An all_to_all would appear only where the tokens are
+sharded over the axis the experts are on, which no rule table here does.
+Without a mesh the ``constrain`` calls are no-ops.
 """
 
 from __future__ import annotations
@@ -20,11 +32,14 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch._private.tree import tree_from_numpy
 from ray_tpu_torch.models.llama import (
     _nll_from_logits, _rms_norm, _rope, _trunc_normal)
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.parallel.sharding import (
+    as_replicated, constrain, place_like)
 
 _LAYER_KEYS = frozenset({"wq", "wk", "wv", "wo", "router", "we_gate", "we_up",
                          "we_down", "attn_norm", "mlp_norm"})
@@ -64,6 +79,31 @@ class MoEConfig:
         return MoEConfig(vocab_size=32000, hidden=4096, mlp_hidden=14336,
                          num_layers=32, num_heads=32, num_kv_heads=8,
                          num_experts=8, experts_per_token=2)
+
+
+def moe_logical_axes(cfg: MoEConfig) -> Dict[str, Any]:
+    """The params' logical axes, as the reference's: the expert FFN stacks'
+    leading (after the layer dim) ``expert`` dim shards over the mesh's
+    ``expert`` axis, the router's expert dim too."""
+    del cfg
+    layer = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "router": ("embed", "expert"),
+        "we_gate": ("expert", "embed", "mlp"),
+        "we_up": ("expert", "embed", "mlp"),
+        "we_down": ("expert", "mlp", "embed"),
+        "attn_norm": ("norm",),
+        "mlp_norm": ("norm",),
+    }
+    return {
+        "embed": ("vocab", "embed"),
+        "layers": {k: (None,) + v for k, v in layer.items()},
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def init_moe(cfg: MoEConfig, generator: torch.Generator,
@@ -142,16 +182,20 @@ def route(cfg: MoEConfig, x: torch.Tensor,
     C = capacity(cfg, S)
     logits = torch.einsum("bsh,he->bse", x.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.topk(probs, K, dim=-1, sorted=True)
+    expert_idx = torch.topk(probs.detach(), K, dim=-1, sorted=True).indices
+    onehot = (expert_idx[..., None] == as_replicated(
+        torch.arange(E, device=x.device), x)).to(torch.int32)
+    # the top-k values picked by the one-hot mask (exactly the values, one
+    # nonzero term per sum; the same gradient): topk's backward scatters
+    # into a plain zero tensor, which DTensor refuses in some torch versions
+    gate_vals = (probs[..., None, :] * onehot).sum(-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
                                         min=1e-9)
-    onehot = (expert_idx[..., None]
-              == torch.arange(E, device=x.device)).to(torch.int32)
     flat = onehot.reshape(B, S * K, E)
     pos = (torch.cumsum(flat, dim=1) - flat).reshape(B, S, K, E)
     keep = (pos < C) & (onehot > 0)
-    slot_oh = (pos[..., None]
-               == torch.arange(C, device=x.device)).to(x.dtype)
+    slot_oh = (pos[..., None] == as_replicated(
+        torch.arange(C, device=x.device), x)).to(x.dtype)
     return Routing(probs, gate_vals, expert_idx, onehot, keep, slot_oh)
 
 
@@ -167,10 +211,12 @@ def _moe_ffn(cfg: MoEConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor]
                            keep_f, r.slot_oh)
 
     expert_in = torch.einsum("bsec,bsh->ebch", dispatch, x)  # [E, B, C, H]
+    expert_in = constrain(expert_in, ("expert", "batch", None, "embed"))
     gate = torch.einsum("ebch,ehm->ebcm", expert_in, lp["we_gate"].to(dt))
     up = torch.einsum("ebch,ehm->ebcm", expert_in, lp["we_up"].to(dt))
-    act = torch.nn.functional.silu(gate) * up
+    act = F.silu(gate) * up
     out = torch.einsum("ebcm,emh->ebch", act, lp["we_down"].to(dt))
+    out = constrain(out, ("expert", "batch", None, "embed"))
     y = torch.einsum("ebch,bsec->bsh", out, combine)
 
     # Switch-style load-balancing loss: router mass times the share of
@@ -202,10 +248,15 @@ def moe_forward(params: Dict[str, Any], tokens: torch.Tensor,
     """tokens [B, S] -> (logits [B, S, V] fp32, the layers' aux losses
     summed, fp32). No remat, as in the reference."""
     dt = cfg.dtype
-    x = params["embed"].to(dt)[tokens]
+    # F.embedding, not indexing, as llama_hidden looks tokens up on a mesh
+    x = F.embedding(tokens, constrain(params["embed"], ("vocab", None))
+                    ).to(dt)
+    x = constrain(x, ("batch", "seq", "embed"))
     B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    positions = place_like(torch.arange(S, device=tokens.device).expand(B, S),
+                           tokens)
+    aux = as_replicated(torch.zeros((), dtype=torch.float32,
+                                    device=tokens.device), tokens)
     # per-layer views through one ``unbind`` per leaf, whose backward stacks
     # the layers' grads once, as the reference's scan writes them
     layers = {name: w.unbind(0) for name, w in params["layers"].items()}

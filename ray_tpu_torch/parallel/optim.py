@@ -33,6 +33,47 @@ def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
     return make
 
 
+class _ClipAdam(torch.optim.Adam):
+    """``optax.chain(clip_by_global_norm(max_norm), adam(lr))``: the grads
+    of all the leaves are scaled by ``max_norm / norm`` when their fp32
+    global norm is at least ``max_norm`` (optax's ``trigger``, with no
+    epsilon: ``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm),
+    then Adam with bias correction and eps outside the square root, which
+    is torch's ``Adam`` with ``weight_decay=0``."""
+
+    def __init__(self, params, lr, max_norm, betas, eps):
+        super().__init__(params, lr=lr, betas=betas, eps=eps,
+                         weight_decay=0.0, amsgrad=False, maximize=False)
+        self.max_norm = max_norm
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("clip_adam takes no closure")
+        grads = [p.grad for group in self.param_groups
+                 for p in group["params"] if p.grad is not None]
+        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        if isinstance(norm, DTensor):
+            norm = norm.full_tensor()
+        norm = norm.item()
+        if norm >= self.max_norm:
+            for g in grads:
+                g.mul_(self.max_norm / norm)
+        return super().step()
+
+
+def clip_adam(learning_rate: float, max_norm: float, b1: float = 0.9,
+              b2: float = 0.999, eps: float = 1e-8
+              ) -> Callable[[Any], torch.optim.Optimizer]:
+    """``optax.chain(optax.clip_by_global_norm(max_norm),
+    optax.adam(learning_rate))``, the RL learners' optimizer: a factory
+    ``params -> torch.optim.Optimizer`` (:class:`_ClipAdam`)."""
+    def make(params: Any) -> torch.optim.Optimizer:
+        return _ClipAdam(tree_leaves(params), learning_rate, max_norm,
+                         (b1, b2), eps)
+    return make
+
+
 def factored_dims(shape: Tuple[int, ...], factored: bool = True,
                   min_dim_size_to_factor: int = 128
                   ) -> Optional[Tuple[int, int]]:

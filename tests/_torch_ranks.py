@@ -287,6 +287,166 @@ def ring_layer(rank, world, inp):
             "dv": _np(qkv[2].grad)}
 
 
+def moe_ep(rank, world, inp):
+    """The MoE train step on ``inp["mesh"]`` (a (data, expert) mesh), the
+    params carried across from JAX and placed by ``moe_logical_axes``, fp32:
+    the first step's loss and gathered grads, 3 AdamW steps' metrics and
+    the params after them, the params' placements, and the placements
+    ``constrain`` gave ``expert_in`` and the experts' output."""
+    from ray_tpu_torch.models import moe as tm
+    from ray_tpu_torch.parallel import optim as topt
+    from ray_tpu_torch.parallel import train_step as tts
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.sharding import compat_mesh_ctx
+
+    cfg = dataclasses.replace(tm.MoEConfig.tiny(), dtype=torch.float32)
+    mesh = create_mesh(MeshConfig(**inp["mesh"]), device="cpu")
+    axes = tm.moe_logical_axes(cfg)
+    batch = _tb(inp["batch"])
+    seen = []
+    constrain = tm.constrain
+
+    def recording(x, logical_axes, rules=None):
+        out = constrain(x, logical_axes, rules)
+        if logical_axes[0] == "expert":
+            seen.append([repr(p) for p in out.placements])
+        return out
+
+    tm.constrain = recording
+    try:
+        tx = topt.adamw(1e-3)
+        state = tts.create_train_state(
+            lambda g: tm.moe_params_from_jax(inp["params"]), tx, mesh, axes,
+            device="cpu")
+        with compat_mesh_ctx(mesh):
+            loss = tm.moe_loss(state.params, _shard_rows(batch, mesh), cfg)
+        loss.backward()
+        grads = _np(_dicts(state.params, lambda t: t.grad))
+        first_loss = float(loss.full_tensor())
+        step = tts.make_train_step(lambda p, b: tm.moe_loss(p, b, cfg), tx,
+                                   mesh, batch_logical_axes=("batch", "seq"))
+        state, metrics = _run_steps(step, state, batch, 3)
+    finally:
+        tm.constrain = constrain
+    names = mesh.mesh_dim_names
+    placements = {
+        k: [(names[i], repr(p)) for i, p in enumerate(v.placements)]
+        for k, v in state.params["layers"].items()}
+    return {"loss": first_loss, "grads": grads, "metrics": metrics,
+            "params": _np(state.params), "placements": placements,
+            "constrained": seen[:2], "mesh": list(names)}
+
+
+def _shard_rows(batch, mesh):
+    from ray_tpu_torch.parallel.sharding import (
+        NamedSharding, logical_to_spec, shard_tensor)
+
+    spec = logical_to_spec(("batch", "seq"))
+    return {k: shard_tensor(v, NamedSharding(mesh, spec))
+            for k, v in batch.items()}
+
+
+def _dicts(tree, leaf=lambda t: t):
+    """The tree with its lists as dicts keyed by index (``_np`` walks
+    dicts), each leaf through ``leaf``."""
+    if isinstance(tree, dict):
+        return {k: _dicts(v, leaf) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return {str(i): _dicts(v, leaf) for i, v in enumerate(tree)}
+    return leaf(tree)
+
+
+def pipeline(rank, world, inp):
+    """The GPipe pipeline on ``inp["mesh"]`` from JAX's stacked stage params:
+    ``pipeline_apply``'s output (M given, and M by default), the
+    validation error, the grads of mean((y - t)**2), one
+    ``make_pipeline_train_step`` step and 20 steps of adam(1e-2); rank 0
+    also runs every stage's ticks in this process (no mesh) on the same
+    params for the output and the grads."""
+    from ray_tpu_torch.parallel import optim as topt
+    from ray_tpu_torch.parallel import pipeline as tp
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.sharding import NamedSharding, shard_tensor
+    from ray_tpu_torch._private.tree import tree_map
+
+    mesh = create_mesh(MeshConfig(**inp["mesh"]), device="cpu")
+    data_axis = inp["data_axis"]
+    M = inp["microbatches"]
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    def mse(y, t):
+        return torch.mean((y - t) ** 2)
+
+    def placed():
+        full = tp.stage_params_from_jax(inp["params"])
+        return tree_map(lambda t: shard_tensor(t, NamedSharding(
+            mesh, tp.stage_param_spec(t))).requires_grad_(True), full)
+
+    x, tgt = torch.from_numpy(inp["x"]), torch.from_numpy(inp["target"])
+    out = {"n_stages": tp.num_stages(mesh)}
+    params = placed()
+    y = tp.pipeline_apply(stage_fn, params, x, mesh, data_axis=data_axis,
+                          num_microbatches=M)
+    t = torch.distributed.tensor.DTensor.from_local(
+        tp._local_rows(tgt, mesh, tp._data_axes(mesh, data_axis)), mesh,
+        y.placements, run_check=False)
+    mse(y, t).backward()
+    out["y"] = _np(y)
+    out["grads"] = _np(_dicts(params, lambda t: t.grad))
+    out["y_default_m"] = _np(tp.pipeline_apply(
+        stage_fn, params, x, mesh, data_axis=data_axis))
+    try:
+        tp.pipeline_apply(stage_fn, params, x[:6], mesh,
+                          data_axis=data_axis, num_microbatches=4)
+        out["validation"] = None
+    except ValueError as e:
+        out["validation"] = str(e)
+
+    for name, tx, n in (("step", topt.adamw(1e-3), 1),
+                        ("train", topt.adamw(1e-2, weight_decay=0.0), 20)):
+        params = placed()
+        step = tp.make_pipeline_train_step(stage_fn, mse, tx, mesh, params,
+                                           data_axis=data_axis,
+                                           num_microbatches=M)
+        carry, losses = (params, tx(params)), []
+        for _ in range(n):
+            carry, m = step(carry, (x, tgt))
+            losses.append(float(m["loss"]))
+        out[name] = {"losses": losses, "params": _np(carry[0])}
+
+    if rank == 0:
+        full = tree_map(lambda t: t.requires_grad_(True),
+                        tp.stage_params_from_jax(inp["params"]))
+        y_in = tp.pipeline_apply(stage_fn, full, x, None, num_microbatches=M)
+        mse(y_in, tgt).backward()
+        out["in_process"] = {"y": _np(y_in),
+                             "grads": _np(_dicts(full, lambda t: t.grad))}
+    return out
+
+
+def ppo_mesh(rank, world, inp):
+    """A PPOLearner on the data mesh of every rank (``use_mesh=True``), its
+    params set to JAX's: the first minibatch's grads and loss metrics, then
+    one ``update`` and the params after it."""
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import (
+        RLModuleSpec, rl_params_from_jax)
+
+    lrn = PPOLearner(RLModuleSpec(**inp["spec"]), inp["config"],
+                     use_mesh=True, device="cpu")
+    lrn.set_weights(rl_params_from_jax(inp["params"]))
+    metrics = lrn.compute_grads(lrn._batch(inp["batch"]))
+    grads = _np(_dicts(lrn.params, lambda t: t.grad))
+    update = lrn.update(inp["batch"])
+    return {"mesh": dict(zip(lrn._mesh.mesh_dim_names, lrn._mesh.shape)),
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": grads, "update": update,
+            "params": _np(_dicts(lrn.params))}
+
+
 SCENARIOS: Dict[str, Callable] = {
     "sharded_step": sharded_step, "ring": ring, "ring_llama": ring_llama,
-    "ring_layer": ring_layer}
+    "ring_layer": ring_layer, "moe_ep": moe_ep, "pipeline": pipeline,
+    "ppo_mesh": ppo_mesh}
