@@ -92,8 +92,28 @@ Phases, in order; any failure raises and the exit code is not 0:
     each against phase 7's first 3 within 1e-3 relative, K1 = 64 and K2 =
     K3 = 32 a step; the step's wall and device time beside phases 7 and
     9's, the worker's peak memory and the placements of a LoRA leaf, a
-    base leaf and an AdamW moment. Then every process of the session gone
-    and the card's memory back.
+    base leaf and an AdamW moment.
+27. (The same session.) ``TorchTrainer(datasets={"train": ds}).fit()``
+    with one GPU worker running phase 7's 7B LoRA step (1 + 3 steps), each
+    batch from ``get_dataset_shard("train").iter_torch_batches()`` on the
+    card; ``ds`` is ``range -> map_batches(tokenize)``, rows as
+    ``bench.py``'s ``_tokenize_rows`` makes them. The same step fed the
+    same tokens directly in that worker: losses bit-equal, K1 = 64 and K2
+    = K3 = 32 a step on both. The shard's first batch again with
+    ``sharding=`` a ``NamedSharding`` over the trainer's group: DTensors on
+    the card.
+28. (The same session.) ``bench.py``'s data-fed dense series in the
+    driver: the dense 1B rung (below, phase 10) fed through
+    ``streaming_split(1)`` and ``iter_torch_batches``, 1 + 3 steps; the
+    first loss bit-equal to phase 10's step on the same tokens; tokens/s,
+    MFU and the device's busy share, printed beside phase 10's once it has
+    run.
+29. (The same session.) ``BatchPredictor.from_checkpoint(<phase 19's
+    checkpoint>, ParamsPredictor).predict(ds, num_gpus=1, concurrency=1)``
+    over phase 19's 4 prompts: the 7B with the checkpoint's adapters in a
+    GPU actor, its logits equal to phase 19's ``ParamsPredictor`` in the
+    driver, its K1 launches counted in the actor (32). Then the session's
+    shutdown checks cover phases 21, 22 and 27-29's processes.
 10. Drive the dense training path: ``bench.py``'s second rung (~1.005B
     params: hidden 2048, mlp 5632, 17 layers, 16 heads of 128, fp32
     params, remat "dots", ``adafactor(1e-3)``) at full width and depth,
@@ -865,34 +885,36 @@ def _device_available():
     return torch.cuda.mem_get_info()[0] + torch.cuda.memory_reserved()
 
 
-def _check_session_gone(tag, session_dir, procs, avail_before, pid, role):
+def _check_session_gone(tag, session_dir, procs, avail_before, workers):
     """After ``ray_tpu_torch.shutdown()``: every process the session
-    registered (``procs``, read before the shutdown) and the worker ``pid``
-    are gone, the card gives back what it gave before ``init`` (within 512
-    MiB) and the session's directory is removed."""
+    registered (``procs``, read before the shutdown) and every worker of
+    ``workers`` ({role: pid}) are gone, the card gives back what it gave
+    before ``init`` (within 512 MiB) and the session's directory is
+    removed."""
     from ray_tpu_torch._private import lifecycle
 
     def alive():
         return [f"{r['role']}:{r['pid']}" for r in procs
-                if lifecycle._pid_alive(r["pid"], r.get("create_time"))]
+                if lifecycle._pid_alive(r["pid"], r.get("create_time"))] + [
+            f"{role}:{pid}" for role, pid in workers.items()
+            if lifecycle._pid_alive(pid)]
 
     deadline = time.monotonic() + 60
-    while time.monotonic() < deadline and (
-            alive() or lifecycle._pid_alive(pid)):
+    while time.monotonic() < deadline and alive():
         time.sleep(0.2)
     on_card = DEVICE == "cuda"
     avail_after = _device_available() if on_card else 0
     left = [s for s in lifecycle.list_sessions()
             if os.path.normpath(s["path"]) == os.path.normpath(session_dir)]
-    log(f"[{tag}] after shutdown: {len(procs)} processes of the session, "
-        f"alive {alive()} ({role} {pid} among them: "
-        f"{lifecycle._pid_alive(pid)}); the card gives "
+    log(f"[{tag}] after shutdown: {len(procs)} processes of the session "
+        f"and {workers}, alive {alive()}; the card gives "
         f"{(avail_before - avail_after) / 2**20:.0f} MiB less than before "
         f"init; sessions left {[s['path'] for s in left]}")
-    if alive() or lifecycle._pid_alive(pid):
+    if alive():
         raise AssertionError(f"{alive()} outlived the shutdown")
     if on_card and avail_before - avail_after > 512 * 2**20:
-        raise AssertionError(f"the {role}'s memory did not come back")
+        raise AssertionError(f"the memory of {sorted(workers)} did not come "
+                             f"back")
     if left:
         raise AssertionError(f"session {session_dir} outlived the shutdown")
 
@@ -1066,7 +1088,7 @@ def phase_serve_deployment(gen, inproc):
         ray_tpu_torch.shutdown()
 
     _check_session_gone("18", session_dir, procs, avail_before,
-                        pr["pid"], "replica")
+                        {"replica": pr["pid"]})
     return replica_launches, figures
 
 
@@ -1158,7 +1180,9 @@ def phase_train_runtime(gen, card, inproc):
     ``ParamsPredictor`` runs the checkpoint's adapters in the driver. Then
     the runtime shuts down and its processes and memory must be gone.
     ``inproc`` is phase 7's run. Returns the worker's (K1, K2, K3) launches
-    over both fits and the predictor's K1 launches."""
+    over both fits, the predictor's K1 launches, and for phase 29 a copy of
+    the checkpoint (a directory the caller removes), the prompts and the
+    predictor's outputs."""
     import shutil
     import tempfile
 
@@ -1331,6 +1355,9 @@ def phase_train_runtime(gen, card, inproc):
                 gen._params, x, fwd_cfg, lora=lo, lora_cfg=lcfg))
         got = pred.predict({"features": prompts})["predictions"]
         pred_launches = counts()
+        # phase 29 maps the same checkpoint over a Dataset in an actor
+        kept = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        shutil.copytree(result.checkpoint.path, kept, dirs_exist_ok=True)
         with result.checkpoint.as_directory() as d:
             lora = load_pytree(d, "state", device=DEVICE)["params"]
         with torch.no_grad():
@@ -1405,8 +1432,8 @@ def phase_train_runtime(gen, card, inproc):
         raise AssertionError("the predictor disagrees with llama_forward")
     if on_card and pred_launches != (L, 0, 0):
         raise AssertionError(f"predictor launches {pred_launches}")
-    _check_session_gone("19", session_dir, procs, avail_before, m["pid"],
-                        "train worker")
+    _check_session_gone("19", session_dir, procs, avail_before,
+                        {"train worker": m["pid"]})
     log(f"[19] {card}: first report {hist[0]['t'] - t_fit:.2f} s after "
         f"fit(); {worker_ms:.1f} ms/step in the worker vs "
         f"{inproc['ms_step']:.1f} in process; checkpoint "
@@ -1414,7 +1441,8 @@ def phase_train_runtime(gen, card, inproc):
         f"{resume_s:.2f} s")
     worker_launches = [sum(h["launches"][i] for h in hist + rm["history"])
                        for i in range(3)]
-    return worker_launches, pred_launches[0]
+    return worker_launches, pred_launches[0], {
+        "checkpoint": kept, "prompts": prompts, "predictions": got}
 
 
 def phase_collective(on_card):
@@ -1672,13 +1700,368 @@ def phase_mesh_train(gen, card, inproc):
     return launches, m
 
 
+def _tokenizer(seq, vocab):
+    """``bench.py``'s ``_tokenize_rows`` (bench.py:133-141) as a map_batches
+    function over a ``range`` block: row id -> seq + 1 tokens, as inputs
+    [:, :-1] and targets [:, 1:]. Made here, so that it travels to the
+    workers by value (it needs numpy only)."""
+
+    def tokenize(tbl):
+        import numpy as np
+
+        ids = np.asarray(tbl["id"], dtype=np.int64).reshape(-1, 1)
+        pos = np.arange(seq + 1, dtype=np.int64)[None, :]
+        tok = ((ids * 1000003 + pos * 7919 + 17) % vocab).astype(np.int32)
+        return {"inputs": tok[:, :-1], "targets": tok[:, 1:]}
+    return tokenize
+
+
+def _token_dataset(n_rows, batch, seq, vocab):
+    """``range(n_rows) -> map_batches(tokenize)`` in blocks of ``batch``
+    rows, and the same tokens computed here."""
+    from ray_tpu_torch import data as rdata
+
+    tokenize = _tokenizer(seq, vocab)
+    ds = rdata.range(n_rows, parallelism=2).map_batches(
+        tokenize, batch_size=batch)
+    return ds, tokenize({"id": np.arange(n_rows)})
+
+
+def phase_train_data(gen, card):
+    """Phase 27 (the runtime is up): ``TorchTrainer(datasets={"train":
+    ds}).fit()`` with one GPU worker running phase 7's 7B LoRA step (B=1,
+    S=2048, 1 + 3 steps), each batch from ``get_dataset_shard("train")
+    .iter_torch_batches()`` on the card; ``ds`` is ``range -> map_batches
+    (tokenize)``, rows as ``bench.py``'s ``_tokenize_rows`` makes them.
+    Then, in the same worker, the same step from the same seed fed the same
+    tokens directly: the batches equal and the losses and grad norms bit-
+    equal, K1 = 64 and K2 = K3 = 32 a step on both. Last, the shard's first
+    batch again with ``sharding=`` a ``NamedSharding`` on a mesh over the
+    trainer's group: DTensors on the card equal to those tokens. Returns
+    the fed run's (K1, K2, K3) launches and the worker's pid."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.train import (
+        FailureConfig, RunConfig, ScalingConfig, TorchTrainer)
+
+    cfg, lcfg, _ = train_setup(gen)
+    on_card = DEVICE == "cuda"
+    n_steps = 1 + TRAIN_STEPS
+    ds, want_tok = _token_dataset(TRAIN_B * n_steps, TRAIN_B, TRAIN_S,
+                                  cfg.vocab_size)
+
+    def loop(config):
+        import dataclasses
+        import os
+        import time
+
+        import torch
+
+        from ray_tpu_torch import resolve_device, train
+        from ray_tpu_torch.models.llama import (
+            init_llama, init_lora, llama_lora_loss)
+        from ray_tpu_torch.ops.cuda import _build
+        from ray_tpu_torch.ops.cuda import flash_attention as fa
+        from ray_tpu_torch.parallel import (
+            MeshConfig, adamw, create_mesh, create_train_state,
+            make_train_step)
+        from ray_tpu_torch.parallel.sharding import (
+            NamedSharding, logical_to_spec)
+
+        dev = resolve_device(config["device"])
+        if dev.type == "cuda":
+            for name in config["kernels"]:
+                _build.load(name)
+        cfg, lcfg, B = config["cfg"], config["lcfg"], config["batch"]
+        base_cfg = config["base_cfg"]
+        base = init_llama(dataclasses.replace(
+            base_cfg, param_dtype=base_cfg.dtype),
+            torch.Generator(device=dev).manual_seed(0), dev)
+
+        def run(batches):
+            tx = adamw(1e-4)
+            state = create_train_state(
+                lambda g: init_lora(cfg, lcfg, g, g.device), tx,
+                device=dev, seed=1)
+            step = make_train_step(
+                lambda lo, b, fz: llama_lora_loss(fz, lo, b, cfg, lcfg), tx,
+                frozen=base)
+            hist, seen = [], []
+            for batch in batches:
+                seen.append({k: v.cpu().numpy() for k, v in batch.items()})
+                before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+                hist.append({"loss": loss, "grad_norm": gnorm,
+                             "ms": (time.perf_counter() - t0) * 1e3,
+                             "launches": [a - b for a, b in zip(
+                                 (fa.launches, fa.dq_launches,
+                                  fa.dkv_launches), before)]})
+                if len(hist) == config["steps"]:
+                    break
+            return hist, seen
+
+        shard = train.get_dataset_shard("train")
+        fed, seen = run(shard.iter_torch_batches(
+            batch_size=B, device=dev, prefetch_batches=2,
+            dtypes={"inputs": torch.long, "targets": torch.long}))
+        tok = {k: torch.from_numpy(v).long().to(dev)
+               for k, v in config["tokens"].items()}
+        direct, _ = run({k: v[i:i + B] for k, v in tok.items()}
+                        for i in range(0, B * config["steps"], B))
+        # the shard again (a new pass over the dataset), its first batch as
+        # DTensors on a mesh over the trainer's group
+        mesh = create_mesh(MeshConfig(data=-1), device=dev)
+        placed = next(iter(shard.iter_torch_batches(
+            batch_size=B, prefetch_batches=2, sharding=NamedSharding(
+                mesh, logical_to_spec(("batch", "seq"))),
+            dtypes={"inputs": torch.long, "targets": torch.long})))
+        sharded = {k: {"type": type(v).__name__,
+                       "placements": [repr(p) for p in v.placements],
+                       "device": str(v.to_local().device),
+                       "equal": bool(torch.equal(v.full_tensor(),
+                                                 tok[k][:B]))}
+                   for k, v in placed.items()}
+        train.report({"pid": os.getpid(), "fed": fed, "direct": direct,
+                      "batches": seen, "sharded": sharded,
+                      "device": str(next(iter(base.values())).device)})
+
+    loop_cfg = {"cfg": cfg, "lcfg": lcfg, "base_cfg": gen._cfg,
+                "tokens": want_tok, "batch": TRAIN_B, "device": DEVICE,
+                "kernels": TENSOR_CORE_LIBS, "steps": n_steps}
+    storage = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    t_fit = time.time()
+    try:
+        result = TorchTrainer(
+            loop, train_loop_config=loop_cfg,
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=on_card),
+            run_config=RunConfig(
+                name="lora_7b_data", storage_path=storage,
+                failure_config=FailureConfig(max_failures=0)),
+            datasets={"train": ds}).fit()
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+    fit_s = time.time() - t_fit
+    if result.error is not None or result.restarts != 0:
+        raise AssertionError(f"fit: error {result.error!r}, restarts "
+                             f"{result.restarts}")
+    m = result.metrics
+    fed, direct = m["fed"], m["direct"]
+    L = cfg.num_layers
+    per_step = (2 * L, L, L) if on_card else (0, 0, 0)
+    pairs = [(h["loss"], h["grad_norm"]) for h in fed]
+    log(f"[27] TorchTrainer(datasets=) 7B LoRA step B={TRAIN_B} "
+        f"S={TRAIN_S}, worker pid {m['pid']} on {m['device']}: fed from "
+        f"get_dataset_shard (loss, grad_norm) "
+        f"{[(round(a, 5), round(b, 5)) for a, b in pairs]}, ms "
+        f"{[round(h['ms'], 1) for h in fed]}; fed directly "
+        f"{[(round(h['loss'], 5), round(h['grad_norm'], 5)) for h in direct]}"
+        f", ms {[round(h['ms'], 1) for h in direct]}; launches per step "
+        f"{[tuple(h['launches']) for h in fed]} fed, "
+        f"{[tuple(h['launches']) for h in direct]} direct; fit {fit_s:.2f} "
+        f"s; the shard's first batch with sharding= {m['sharded']}")
+    if any(v["type"] != "DTensor" or not v["equal"]
+           or not v["device"].startswith(DEVICE)
+           for v in m["sharded"].values()):
+        raise AssertionError("iter_torch_batches(sharding=) in the worker: "
+                             f"{m['sharded']}")
+    if len(m["batches"]) != n_steps or not all(
+            np.array_equal(b[k], want_tok[k][i * TRAIN_B:(i + 1) * TRAIN_B])
+            for i, b in enumerate(m["batches"]) for k in want_tok):
+        raise AssertionError("the worker's dataset shard gave other tokens "
+                             "than bench.py's tokenizer")
+    if pairs != [(h["loss"], h["grad_norm"]) for h in direct] or \
+            len(pairs) != n_steps:
+        raise AssertionError("the data-fed steps are not bit-equal to the "
+                             "directly fed ones")
+    if not all(np.isfinite(v) for pair in pairs for v in pair):
+        raise AssertionError(f"non-finite loss or grad norm: {pairs}")
+    if any(tuple(h["launches"]) != per_step for h in fed + direct):
+        raise AssertionError(f"launches per step != {per_step}")
+    log(f"[27] {card}: fit {fit_s:.2f} s; {len(fed)} data-fed steps "
+        f"bit-equal to the directly fed ones")
+    return [sum(h["launches"][i] for h in fed) for i in range(3)], m["pid"]
+
+
+def phase_dense_data(card):
+    """Phase 28 (the runtime is up): ``bench.py``'s data-fed series
+    (bench.py:144-207) at the dense 1B rung in the driver: ``range ->
+    map_batches(tokenize) -> streaming_split(1)``, batches through
+    ``iter_torch_batches`` (prefetch 2) to the card, phase 10's step
+    (``adafactor(1e-3)``, remat "dots", params from seed 0), B=4, S=2048,
+    one warm-up and DENSE_STEPS timed steps under torch.profiler (the
+    device's busy share of the window). Then phase 10's step from a fresh
+    state fed the first batch's tokens directly: its loss bit-equal to the
+    data-fed first loss. Returns the timed steps' (K1, K2, K3) launches,
+    tokens/s, MFU and the busy share."""
+    cfg = DENSE_CFG
+    n_rows = DENSE_B * (DENSE_STEPS + 2)  # as bench.py's total_rows
+    ds, want_tok = _token_dataset(n_rows, DENSE_B, DENSE_S, cfg.vocab_size)
+    it = ds.streaming_split(1)[0]
+
+    def new_step():
+        tx = adafactor(1e-3)
+        state = create_train_state(lambda g: init_llama(cfg, g, g.device),
+                                   tx, device=DEVICE, seed=0)
+        return state, make_train_step(lambda p, b: llama_loss(p, b, cfg), tx)
+
+    t0 = time.perf_counter()
+    state, step = new_step()
+    batches = it.iter_torch_batches(
+        batch_size=DENSE_B, device=DEVICE, prefetch_batches=2,
+        dtypes={"inputs": torch.long, "targets": torch.long})
+    first = next(batches)
+    state, m = step(state, first)
+    first_loss = m["loss"].item()
+    warm_s = time.perf_counter() - t0
+    reset_counts()
+    metrics = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch in batches:
+            state, m = step(state, batch)
+            metrics.append((m["loss"], m["grad_norm"]))
+            if len(metrics) == DENSE_STEPS:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    device_ms = sum(
+        e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)) / 1e3
+    metrics = [(a.item(), b.item()) for a, b in metrics]
+    del state, step, batches, first
+    gc.collect()
+    # phase 10's step on the first batch's tokens, fed directly
+    state, step = new_step()
+    tok = {k: torch.from_numpy(v[:DENSE_B]).long().to(DEVICE)
+           for k, v in want_tok.items()}
+    _, m = step(state, tok)
+    direct_loss = m["loss"].item()
+    del state, step
+    gc.collect()
+    L = cfg.num_layers
+    want = ((2 * L * DENSE_STEPS, L * DENSE_STEPS, L * DENSE_STEPS)
+            if DEVICE == "cuda" else (0, 0, 0))
+    tok_s = DENSE_B * DENSE_S * len(metrics) / wall
+    mfu = tok_s * cfg.flops_per_token(DENSE_S) / PEAK_FLOPS["bfloat16"]
+    busy = device_ms / (wall * 1e3)
+    log(f"[28] data-fed dense 1B B={DENSE_B} S={DENSE_S} through "
+        f"streaming_split(1) and iter_torch_batches: warm-up {warm_s:.1f} s "
+        f"(init, first batch, first step), first loss {first_loss!r} vs "
+        f"{direct_loss!r} fed directly; (loss, grad_norm) per timed step "
+        f"{[(round(a, 5), round(b, 5)) for a, b in metrics]}; "
+        f"{wall / len(metrics) * 1e3:.1f} ms/step, {tok_s:.0f} tokens/s, "
+        f"MFU {mfu:.1%}, device kernels {device_ms:.1f} ms in "
+        f"{wall * 1e3:.1f} ms of wall (busy {busy:.1%}); launches K1 "
+        f"{launches[0]}, K2 {launches[1]}, K3 {launches[2]} over "
+        f"{len(metrics)} steps; {card}")
+    if first_loss != direct_loss:
+        raise AssertionError("the data-fed first loss differs from phase "
+                             "10's step on the same tokens")
+    if len(metrics) != DENSE_STEPS or not all(
+            np.isfinite(v) for pair in metrics for v in pair):
+        raise AssertionError(f"data-fed steps: {metrics}")
+    if launches != want:
+        raise AssertionError(f"data-fed launches {launches} != {want}")
+    return dict(launches=launches, tok_s=tok_s, mfu=mfu, busy=busy)
+
+
+def phase_batch_predict(gen, card, phase19):
+    """Phase 29 (the runtime is up): ``BatchPredictor.from_checkpoint(
+    <phase 19's checkpoint>, ParamsPredictor).predict(ds, num_gpus=1,
+    concurrency=1)`` over a Dataset of phase 19's 4 prompts of 128 tokens:
+    the 7B base (seed 0, as ``LlamaGenerator`` draws it, made in the actor
+    at its first batch) with the checkpoint's adapters, in a GPU actor of
+    the pool. The logits equal ``ParamsPredictor``'s in the driver (phase
+    19), and the actor counts its own K1 launches (32 a call). Returns the
+    actor's K1 launches and its pid."""
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch.train import BatchPredictor, Checkpoint, ParamsPredictor
+
+    on_card = DEVICE == "cuda"
+    fwd_cfg, lcfg = gen._cfg, LoraConfig(rank=16)
+    prompts = phase19["prompts"]
+
+    class CountingPredictor(ParamsPredictor):
+        """``ParamsPredictor``, its K1 launches and process id added as
+        columns."""
+
+        def predict(self, batch):
+            import os
+
+            from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+            before = fa.launches
+            out = super().predict(batch)
+            n = len(batch[self.feature_column])
+            out["k1_launches"] = np.full(n, fa.launches - before)
+            out["pid"] = np.full(n, os.getpid())
+            return out
+
+    def apply(lo, x, _base={}):
+        import dataclasses
+
+        import torch
+
+        from ray_tpu_torch.models.llama import init_llama, llama_forward
+
+        if "params" not in _base:  # the base as LlamaGenerator draws it
+            _base["params"] = init_llama(dataclasses.replace(
+                fwd_cfg, param_dtype=fwd_cfg.dtype),
+                torch.Generator(device=x.device).manual_seed(0), x.device)
+        return llama_forward(_base["params"], x, fwd_cfg, lora=lo,
+                             lora_cfg=lcfg)
+
+    ds = rdata.from_numpy(prompts, column="features")
+    t0 = time.perf_counter()
+    rows = BatchPredictor.from_checkpoint(
+        Checkpoint(phase19["checkpoint"]), CountingPredictor, name="state",
+        apply_fn=apply, device=DEVICE).predict(
+        ds, batch_size=len(prompts), concurrency=1,
+        num_gpus=1 if on_card else None).take_all()
+    secs = time.perf_counter() - t0
+    got = np.stack([r["predictions"] for r in rows])
+    want = phase19["predictions"]
+    launches = {int(r["k1_launches"]) for r in rows}
+    pids = {int(r["pid"]) for r in rows}
+    L = fwd_cfg.num_layers
+    log(f"[29] BatchPredictor over {len(prompts)} prompts x "
+        f"{prompts.shape[1]} tokens in a GPU actor (pid {sorted(pids)}, "
+        f"driver {os.getpid()}): logits {got.shape}, max|actor - driver's "
+        f"ParamsPredictor| {float(np.abs(got - want).max()):.3e}; K1 "
+        f"launches in the actor {sorted(launches)} = {L} x 1 call; "
+        f"{secs:.2f} s from predict() to the rows (the actor's start, the "
+        f"base's init, the checkpoint's read); {card}")
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError("the batch predictor's logits differ from "
+                             "ParamsPredictor's in the driver")
+    if not np.array_equal(np.stack([r["features"] for r in rows]), prompts):
+        raise AssertionError("the rows came back in another order")
+    if len(pids) != 1 or os.getpid() in pids:
+        raise AssertionError(f"predicted in processes {pids}")
+    if launches != ({L} if on_card else {0}):
+        raise AssertionError(f"actor K1 launches {launches} != {L}")
+    return L if on_card else 0, pids.pop()
+
+
 def _ms_or_none(ms):
     return "not measured" if ms is None else f"{ms:.1f}"
 
 
-def phase_mesh_runtime(gen, card, inproc):
-    """Phases 21 and 22 in one session of the port's runtime, then the
-    shutdown checks (every process gone, the card's memory back)."""
+def phase_mesh_runtime(gen, card, inproc, phase19):
+    """Phases 21, 22 and the Data phases 27-29 in one session of the port's
+    runtime, then the shutdown checks (every process gone, the phases'
+    workers and actor among them, the card's memory back). Removes phase
+    19's kept checkpoint. Returns the (K1, K2, K3) launches of phase 22,
+    of phase 27's data-fed steps and of phase 28's timed steps, phase 28's
+    figures and phase 29's K1 launches."""
+    import shutil
+
     import ray_tpu_torch
     from ray_tpu_torch._private import lifecycle
 
@@ -1686,18 +2069,30 @@ def phase_mesh_runtime(gen, card, inproc):
     avail_before = _device_available() if on_card else 0
     ray_tpu_torch.init(num_cpus=4, num_gpus=1 if on_card else 0)
     session_dir = ray_tpu_torch._global_node.session_dir
+    tag = "22"
     try:
         phase_collective(on_card)
         launches, m = phase_mesh_train(gen, card, inproc)
+        tag = "27"
+        data_launches, data_pid = phase_train_data(gen, card)
+        tag = "28"
+        dense_data = phase_dense_data(card)
+        tag = "29"
+        predict_launches, predict_pid = phase_batch_predict(
+            gen, card, phase19)
     except BaseException:
-        _log_tail(session_dir, tag="22")
+        _log_tail(session_dir, tag=tag)
         raise
     finally:
         procs = lifecycle.list_registered(session_dir)
         ray_tpu_torch.shutdown()
-    _check_session_gone("22", session_dir, procs, avail_before, m["pid"],
-                        "train worker")
-    return launches
+        shutil.rmtree(phase19["checkpoint"], ignore_errors=True)
+    _check_session_gone("29", session_dir, procs, avail_before, {
+        "phase 22 train worker": m["pid"],
+        "phase 27 train worker": data_pid,
+        "phase 29 predictor actor": predict_pid})
+    return dict(mesh=launches, trainer_data=data_launches,
+                dense_data=dense_data, batch_predictor=predict_launches)
 
 
 def phase_grad_check(gen):
@@ -1813,8 +2208,9 @@ def dense_setup(num_layers=None):
 def phase_dense():
     """The dense 1B rung at full width and depth: fp32 params drawn on the
     card, adafactor(1e-3), remat "dots"; one warm-up and DENSE_STEPS timed
-    steps, then one profiled step. Returns (K1, K2, K3 launches over the
-    timed steps, ms/step)."""
+    steps, then one profiled step. Returns the (K1, K2, K3) launches over
+    the timed steps, ms/step, tokens/s, MFU and the busy share (the
+    profiled step's device time over the timed steps' wall)."""
     cfg, batch = dense_setup()
     tx = adafactor(1e-3)
     torch.cuda.reset_peak_memory_stats()
@@ -1871,7 +2267,9 @@ def phase_dense():
             f"{k} {v:.1f} ms ({v / device_ms:.1%})" for k, v in
             kinds.items()) + f"; {kernels} kernel launches per step")
     log(f"[10] largest other kernels: {top_others(others)}")
-    return dict(launches=launches, ms_step=ms_step)
+    return dict(launches=launches, ms_step=ms_step, tok_s=tok_s,
+                mfu=tok_s * flops_tok / PEAK_FLOPS["bfloat16"],
+                busy=min(device_ms / ms_step, 1.0))
 
 
 def _named_leaves(tree, prefix=""):
@@ -2679,11 +3077,20 @@ def main() -> int:
     train_launches = train["launches"]
     inproc_train = {k: train[k] for k in ("metrics", "ms_step")}
     del train  # the LoRA state and its step
-    trainer_launches, predictor_launches = phase_train_runtime(
+    trainer_launches, predictor_launches, phase19 = phase_train_runtime(
         gen, card, inproc_train)
-    mesh_launches = phase_mesh_runtime(
-        gen, card, dict(inproc_train, device_ms=train_device_ms))
+    session = phase_mesh_runtime(
+        gen, card, dict(inproc_train, device_ms=train_device_ms), phase19)
+    mesh_launches = session["mesh"]
+    trainer_data_launches = session["trainer_data"]
+    dense_data = session["dense_data"]
     dense = phase_dense()
+    log(f"[28] data-fed against resident batch, dense 1B B={DENSE_B} "
+        f"S={DENSE_S}: {dense_data['tok_s']:.0f} against "
+        f"{dense['tok_s']:.0f} tokens/s, MFU {dense_data['mfu']:.1%} against "
+        f"{dense['mfu']:.1%}, busy {dense_data['busy']:.1%} (the timed "
+        f"window) against {dense['busy']:.1%} (phase 10: a profiled step "
+        f"over the timed steps' wall); {card}")
     phase_dense_grad_check()
     phase_decode(gen)
     phase_merge(gen)
@@ -2726,7 +3133,9 @@ def main() -> int:
         "launches": (serve_launches + deploy_launches + k1_train
                      + trainer_launches[0] + predictor_launches + k1_dense
                      + ring_launches[0] + mesh_launches[0]
-                     + pipe_launches[0]),
+                     + pipe_launches[0] + trainer_data_launches[0]
+                     + dense_data["launches"][0]
+                     + session["batch_predictor"]),
         "launches_by_path": {"serve": serve_launches,
                              "serve_deployment": deploy_launches,
                              "train": k1_train,
@@ -2737,7 +3146,10 @@ def main() -> int:
                              "ring_schedule": ring_launches[0],
                              "mesh_train": mesh_launches[0],
                              "moe_expert_mesh": moe_ep_launches[0],
-                             "pipeline": pipe_launches[0]},
+                             "pipeline": pipe_launches[0],
+                             "trainer_data": trainer_data_launches[0],
+                             "dense_data": dense_data["launches"][0],
+                             "batch_predictor": session["batch_predictor"]},
         "max_abs_err": max(r["err_o"] for r in records),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -2757,7 +3169,8 @@ def main() -> int:
                                 (2, "dkv", "flash_attention_dkv", 303)):
         r = tb[kern]
         n = (train_launches[i] + trainer_launches[i] + dense["launches"][i]
-             + ring_launches[i] + mesh_launches[i] + pipe_launches[i])
+             + ring_launches[i] + mesh_launches[i] + pipe_launches[i]
+             + trainer_data_launches[i] + dense_data["launches"][i])
         dense_rec = dict(k23[DENSE_SHAPE][kern],
                          shape=k23[DENSE_SHAPE]["shape"],
                          library_ms=k23[DENSE_SHAPE]["library_ms"])
@@ -2774,7 +3187,9 @@ def main() -> int:
                                  "ring_schedule": ring_launches[i],
                                  "mesh_train": mesh_launches[i],
                                  "moe_expert_mesh": moe_ep_launches[i],
-                                 "pipeline": pipe_launches[i]},
+                                 "pipeline": pipe_launches[i],
+                                 "trainer_data": trainer_data_launches[i],
+                                 "dense_data": dense_data["launches"][i]},
             "max_abs_err": max(b[kern]["abs_err"] for b in bwd),
             # the largest error relative to max|plain|, what the tolerance
             # holds, over every shape

@@ -11,4 +11,5 @@ from __future__ import annotations
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"ray_tpu_torch has no port of {what} yet: it is one of the "
-        "runtime modules still to port (ROADMAP Queue 1, item 12)")
+        "runtime modules still to port (ROADMAP Queue 1, \"The runtime "
+        "modules left out of the copy\")")

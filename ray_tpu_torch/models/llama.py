@@ -11,7 +11,8 @@ reference's ``lax.scan`` over layers is a Python loop here, and its
 ``jax.checkpoint`` per layer is ``torch.utils.checkpoint``. Attention goes
 through ``ray_tpu_torch.ops.attention`` (the CUDA flash kernels on the card,
 forward and backward); the projections and the MLP are ``torch.einsum``, as
-the reference leaves them to XLA.
+the reference leaves them to XLA (on a sharded activation, ``bmm``s over the
+batch: :func:`_proj`).
 
 Incremental decode (``llama_decode``) writes each layer's new keys and values
 into the caller's kv cache in place, where the reference returns new arrays.
@@ -57,6 +58,33 @@ def _ring_seq_attention(q, k, v):
                           mesh=mesh),
         mesh=mesh, in_specs=(qs, qs, qs), out_specs=qs, check_vma=False)
     return fn(q, k, v)
+
+
+def _proj(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, x, w)`` for x [B, S, *K] and a weight [*K, *N]
+    with no batch dim (``eq`` names K in the same order in both). einsum
+    lowers it to one ``bmm`` over x permuted and reshaped to
+    [1, B*S, prod K], and its backward does the same with the output's
+    grad. On a mesh that merge is what DTensor cannot plan: with S split
+    over ``seq`` the merged (B, S) dim is a ``_StridedShard``, whose
+    sharding propagation costs each candidate placement of the product
+    with a graph search (minutes of host time a product on (fsdp=2, seq=2,
+    tensor=2)); and einsum may order K so that a sharded dim (the heads
+    of ``wo``'s input) is not the outer one of its merge, which torch 2.11
+    refuses. So a sharded x goes through a ``bmm`` over B with the weight
+    broadcast and K merged in x's order: B and S stay apart, a sharded dim
+    is the outer one of each merge, the backward is ``bmm``s too, and the
+    values are the same up to the order of the sums. A plain or replicated
+    x (one device, a one-rank mesh) keeps einsum's products exactly."""
+    if not (isinstance(x, DTensor)
+            and any(p.is_shard() for p in x.placements)):
+        return torch.einsum(eq, x, w)
+    B, S = x.shape[:2]
+    k = x.dim() - 2
+    x3 = x.reshape(B, S, -1)
+    w2 = w.reshape(x3.shape[-1], -1)
+    y = torch.bmm(x3, w2.expand(B, *w2.shape))
+    return y.reshape(B, S, *w.shape[k:])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -348,16 +376,16 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
         if lora is None or name not in lora:
             return 0
         ab = lora[name]
-        t = torch.einsum(eq_a, t_in, ab["a"].to(dt))
-        return torch.einsum(eq_b, t, ab["b"].to(dt)) * lora_scale
+        t = _proj(eq_a, t_in, ab["a"].to(dt))
+        return _proj(eq_b, t, ab["b"].to(dt)) * lora_scale
 
     # --- attention ---
     h = _rms_norm(x, lp["attn_norm"], cfg.rms_eps)
-    q = (torch.einsum("bsh,hnd->bsnd", h, lp["wq"].to(dt))
+    q = (_proj("bsh,hnd->bsnd", h, lp["wq"].to(dt))
          + _ld("wq", h, "bsh,hr->bsr", "bsr,rnd->bsnd"))
-    k = (torch.einsum("bsh,hnd->bsnd", h, lp["wk"].to(dt))
+    k = (_proj("bsh,hnd->bsnd", h, lp["wk"].to(dt))
          + _ld("wk", h, "bsh,hr->bsr", "bsr,rnd->bsnd"))
-    v = (torch.einsum("bsh,hnd->bsnd", h, lp["wv"].to(dt))
+    v = (_proj("bsh,hnd->bsnd", h, lp["wv"].to(dt))
          + _ld("wv", h, "bsh,hr->bsr", "bsr,rnd->bsnd"))
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
@@ -375,16 +403,16 @@ def _layer(cfg: LlamaConfig, x: torch.Tensor, lp: Dict[str, torch.Tensor],
     else:
         attn_out = attention(q, k, v, impl=cfg.attn_impl, causal=True)
     attn_out = constrain(attn_out, ("batch", "seq", "heads", None))
-    x = (x + torch.einsum("bsnd,ndh->bsh", attn_out, lp["wo"].to(dt))
+    x = (x + _proj("bsnd,ndh->bsh", attn_out, lp["wo"].to(dt))
          + _ld("wo", attn_out, "bsnd,ndr->bsr", "bsr,rh->bsh"))
     # --- mlp (SwiGLU) ---
     h = _rms_norm(x, lp["mlp_norm"], cfg.rms_eps)
-    gate = (torch.einsum("bsh,hm->bsm", h, lp["w_gate"].to(dt))
+    gate = (_proj("bsh,hm->bsm", h, lp["w_gate"].to(dt))
             + _ld("w_gate", h, "bsh,hr->bsr", "bsr,rm->bsm"))
-    up = (torch.einsum("bsh,hm->bsm", h, lp["w_up"].to(dt))
+    up = (_proj("bsh,hm->bsm", h, lp["w_up"].to(dt))
           + _ld("w_up", h, "bsh,hr->bsr", "bsr,rm->bsm"))
     act = constrain(F.silu(gate) * up, ("batch", "seq", "mlp"))
-    x = (x + torch.einsum("bsm,mh->bsh", act, lp["w_down"].to(dt))
+    x = (x + _proj("bsm,mh->bsh", act, lp["w_down"].to(dt))
          + _ld("w_down", act, "bsm,mr->bsr", "bsr,rh->bsh"))
     return constrain(x, ("batch", "seq", "embed"))
 
@@ -407,9 +435,12 @@ def _dots_policy(ctx, op, *args, **kwargs):
     ("bsh,hnd->bsnd" and the LoRA factors) with a batch of 1 and the
     reference attention's ("bqhd,bkhd->bhqk") with a batch of B*H, so a
     product is saved when its batch is 1 (which also saves attention's at
-    B*H == 1, where the batch is not there to tell them apart)."""
+    B*H == 1, where the batch is not there to tell them apart), or when its
+    weight is broadcast over the batch (stride 0: :func:`_proj` on a
+    mesh)."""
     if op is torch.ops.aten.mm.default or (
-            op is torch.ops.aten.bmm.default and args[0].shape[0] == 1):
+            op is torch.ops.aten.bmm.default and (
+                args[0].shape[0] == 1 or args[1].stride(0) == 0)):
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -487,12 +518,13 @@ def llama_hidden(
     if positions is None:
         positions = place_like(
             torch.arange(S, device=tokens.device).expand(B, S), tokens)
-    # F.embedding, not indexing: on a mesh, indexing a vocab-sharded table
-    # gathers the whole table and drops the batch sharding. The table's
-    # embed dim is gathered first (as fsdp gathers every weight): DTensor's
-    # lookup rule mis-sizes its vocab mask when the table and the batch
-    # share the fsdp axis
-    x = F.embedding(tokens, constrain(params["embed"], ("vocab", None))
+    # F.embedding, not indexing: on a mesh, indexing a table drops the
+    # batch sharding. The table is gathered whole first (as fsdp gathers
+    # every weight, and over the vocab's axis too): DTensor's lookup in a
+    # vocab-sharded table gives a masked partial sum, which mis-sizes its
+    # mask when the table and the batch share the fsdp axis, and whose
+    # backward torch 2.11 cannot redistribute
+    x = F.embedding(tokens, constrain(params["embed"], (None, None))
                     ).to(cfg.dtype)
     x = constrain(x, ("batch", "seq", "embed"))
     scale = lora_cfg.scale if lora_cfg is not None else 0.0
@@ -530,7 +562,7 @@ def llama_forward(
     """tokens [B, S] int → logits [B, S, V] (fp32)."""
     x = llama_hidden(params, tokens, cfg, positions=positions,
                      lora=lora, lora_cfg=lora_cfg)
-    logits = torch.einsum("bsh,hv->bsv", x, params["lm_head"].to(cfg.dtype))
+    logits = _proj("bsh,hv->bsv", x, params["lm_head"].to(cfg.dtype))
     return logits.float()
 
 
@@ -556,7 +588,7 @@ def _nll_from_logits(logits: torch.Tensor,
 
 
 def _ce_chunk(x, lm_head, targets, mask, dtype):
-    logits = torch.einsum("bch,hv->bcv", x, lm_head.to(dtype))
+    logits = _proj("bch,hv->bcv", x, lm_head.to(dtype))
     nll = _nll_from_logits(logits, targets)
     return (nll * mask).sum(), mask.sum()
 
@@ -599,7 +631,7 @@ def llama_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     if cfg.loss_chunk:
         return _chunked_ce(x, params["lm_head"], targets, mask,
                            cfg.loss_chunk, cfg.dtype)
-    logits = torch.einsum("bsh,hv->bsv", x, params["lm_head"].to(cfg.dtype))
+    logits = _proj("bsh,hv->bsv", x, params["lm_head"].to(cfg.dtype))
     nll = _nll_from_logits(logits, targets)
     if mask is not None:
         mask = mask.to(torch.float32)

@@ -8,11 +8,13 @@ holding a GPU unless ``ScalingConfig(use_gpu=False)``, joined by
 ``torch.distributed`` (NCCL on the cards, gloo on the CPU); the loop reports
 metrics and checkpoints with :func:`report`, and a later ``fit`` resumes
 from a checkpoint. ``save_pytree`` / ``load_pytree`` keep tensor trees as
-host data; ``ParamsPredictor`` runs params from a checkpoint.
+host data; ``ParamsPredictor`` runs params from a checkpoint. The
+trainers' ``datasets=`` are split over the workers (``DataConfig``), each
+worker reads its shard with :func:`get_dataset_shard`, and
+``BatchPredictor`` maps a predictor over a ``ray_tpu_torch.data`` Dataset.
 
-Not ported yet: Data (``datasets=``, ``get_dataset_shard``,
-``BatchPredictor``) and Tune (ROADMAP Queue 1, item 12); sharded
-checkpoints (item 6); ``accelerate``, ``gbdt`` and ``huggingface``.
+Not ported yet (ROADMAP Queue 1): Tune, sharded checkpoints, and
+``accelerate``, ``gbdt`` and ``huggingface``.
 """
 
 from typing import Dict, Optional
@@ -47,9 +49,7 @@ def get_checkpoint() -> Optional[Checkpoint]:
 
 
 def get_dataset_shard(name: str = "train"):
-    from ray_tpu_torch._private.not_ported import not_ported
-
-    raise not_ported("ray_tpu/data (get_dataset_shard)")
+    return get_session().get_dataset_shard(name)
 
 
 __all__ = [

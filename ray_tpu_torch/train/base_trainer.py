@@ -52,12 +52,7 @@ class BaseTrainer:
         self.scaling_config = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
         self.resume_from_checkpoint = resume_from_checkpoint
-        if datasets:
-            # the port has no Data yet (ROADMAP Queue 1, item 12)
-            from ray_tpu_torch._private.not_ported import not_ported
-
-            raise not_ported("ray_tpu/data (datasets=)")
-        self.datasets = {}
+        self.datasets = datasets or {}
 
     # Subclasses implement the actual training drive loop.
     def training_loop(self) -> Result:

@@ -5,13 +5,14 @@ load a checkpoint once, predict on column batches).
 Port of ``ray_tpu/train/predictor.py``. ``ParamsPredictor`` is the
 counterpart of the JAX package's flagship ``JaxPredictor``: a pure
 ``apply_fn(params, batch)`` on tensors on the predictor's device, host
-numpy in and out. ``BatchPredictor`` maps a predictor over a Dataset, and
-waits for the port's copy of Data (ROADMAP Queue 1, item 12).
+numpy in and out. ``BatchPredictor`` maps a predictor over a
+``ray_tpu_torch.data`` Dataset in an actor pool, a card per actor with
+``num_gpus=1`` (the reference's ``num_tpus``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Type, Union
 
 import numpy as np
 
@@ -140,17 +141,62 @@ class TorchPredictor(Predictor):
         return result
 
 
+class _PredictorCallable:
+    """Actor-pool callable for map_batches: builds the predictor ONCE in
+    the replica's constructor from the shipped checkpoint. Dict-backed
+    checkpoints travel by value (cluster-safe); directory checkpoints
+    travel by path (shared-filesystem deployments, the reference's
+    storage-path model)."""
+
+    def __init__(self, predictor_cls, shipped, from_checkpoint_kwargs: Dict):
+        kind, payload = shipped
+        ckpt = (Checkpoint.from_dict(payload) if kind == "dict"
+                else Checkpoint.from_directory(payload))
+        self.predictor = predictor_cls.from_checkpoint(
+            ckpt, **from_checkpoint_kwargs)
+
+    def __call__(self, batch):
+        return self.predictor.predict(batch)
+
+
+def _ship_checkpoint(checkpoint: Checkpoint):
+    import os
+
+    if os.path.exists(os.path.join(checkpoint.path, "_dict.pkl")):
+        return ("dict", checkpoint.to_dict())
+    return ("path", checkpoint.path)
+
+
 class BatchPredictor:
-    """Checkpoint + predictor class → Dataset inference (reference:
-    train/batch_predictor.py:40). It maps over a Dataset, which the port
-    has not copied yet: constructing one raises."""
+    """Checkpoint + predictor class → scalable Dataset inference
+    (reference: train/batch_predictor.py:40). The predictor runs in an
+    actor pool of ``concurrency`` actors; ``num_gpus=1`` gives each actor
+    a card (a predictor that defaults to the card, as ``ParamsPredictor``
+    does, runs there)."""
 
-    def __init__(self, checkpoint: Checkpoint, predictor_cls, **kwargs):
-        from ray_tpu_torch._private.not_ported import not_ported
-
-        raise not_ported("ray_tpu/data (BatchPredictor)")
+    def __init__(self, checkpoint: Checkpoint,
+                 predictor_cls: Type[Predictor], **from_checkpoint_kwargs):
+        self.checkpoint = checkpoint
+        self.predictor_cls = predictor_cls
+        self.from_checkpoint_kwargs = from_checkpoint_kwargs
 
     @classmethod
-    def from_checkpoint(cls, checkpoint: Checkpoint, predictor_cls,
+    def from_checkpoint(cls, checkpoint: Checkpoint,
+                        predictor_cls: Type[Predictor],
                         **kwargs) -> "BatchPredictor":
         return cls(checkpoint, predictor_cls, **kwargs)
+
+    def predict(self, dataset, *, batch_size: int = 256,
+                concurrency: int = 2, num_cpus: Optional[float] = None,
+                num_gpus: Optional[float] = None):
+        """Lazy: returns the mapped Dataset; iterate/materialize to run."""
+        return dataset.map_batches(
+            _PredictorCallable,
+            batch_size=batch_size,
+            fn_constructor_args=(self.predictor_cls,
+                                 _ship_checkpoint(self.checkpoint),
+                                 self.from_checkpoint_kwargs),
+            concurrency=concurrency,
+            num_cpus=num_cpus,
+            num_gpus=num_gpus,
+        )

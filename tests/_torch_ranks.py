@@ -446,7 +446,78 @@ def ppo_mesh(rank, world, inp):
             "params": _np(_dicts(lrn.params))}
 
 
+def mesh3d_step(rank, world, inp):
+    """The tiny Llama in fp32 with ``attn_impl="ring_seq"`` on
+    ``inp["mesh"]`` (the dry run's (fsdp=2, seq=2, tensor=2) on 8 ranks),
+    its params carried across from JAX and placed by
+    ``llama_logical_axes``: the loss and the gathered grads of every
+    param; then one ``adamw(1e-3)`` train step from the same params, its
+    metrics and the params after it."""
+    from ray_tpu_torch._private.tree import tree_map
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.parallel import optim as topt
+    from ray_tpu_torch.parallel import train_step as tts
+    from ray_tpu_torch.parallel.sharding import (
+        compat_mesh_ctx, param_shardings, shard_pytree)
+
+    cfg = _tiny(attn_impl="ring_seq")
+    mesh, place = _mesh_and_shard(inp)
+    axes = tl.llama_logical_axes(cfg)
+    params = tree_map(lambda t: t.requires_grad_(True), shard_pytree(
+        tl.params_from_jax(inp["params"]), param_shardings(axes, mesh)))
+    batch = _tb(inp["batch"])
+    with compat_mesh_ctx(mesh):
+        loss = tl.llama_loss(params, {k: place(v, ("batch", "seq"))
+                                      for k, v in batch.items()}, cfg)
+    loss.backward()
+    out = {"loss": float(loss.full_tensor()),
+           "grads": _np(tree_map(lambda t: t.grad, params))}
+    tx = topt.adamw(1e-3)
+    state = tts.create_train_state(
+        lambda g: tl.params_from_jax(inp["params"]), tx, mesh, axes,
+        device="cpu")
+    step = tts.make_train_step(lambda p, b: tl.llama_loss(p, b, cfg), tx,
+                               mesh, batch_logical_axes=("batch", "seq"))
+    state, metrics = _run_steps(step, state, batch, 1)
+    out["step"] = dict(metrics=metrics, params=_np(state.params))
+    return out
+
+
+def data_sharding(rank, world, inp):
+    """``DataIterator.iter_torch_batches(sharding=)`` on a data mesh of
+    every rank: each rank iterates its own rows (rank r's slice of every
+    global batch) through the prefetch thread, and each column comes back
+    as a DTensor on the mesh, its batch dim sharded. Per batch: the local
+    shard, the full tensor and the placements."""
+    from ray_tpu_torch.data.iterator import DataIterator
+    from ray_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from ray_tpu_torch.parallel.sharding import (
+        NamedSharding, logical_to_spec)
+
+    mesh = create_mesh(MeshConfig(data=-1), device="cpu")
+    bs = inp["batch_size"]
+    cols = inp["columns"]
+    n = len(next(iter(cols.values())))
+    mine = [r for start in range(0, n, bs * world)
+            for r in range(start + rank * bs, start + (rank + 1) * bs)]
+    blocks = [{k: v[mine[i:i + 3]] for k, v in cols.items()}
+              for i in range(0, len(mine), 3)]
+    it = DataIterator(lambda: iter(blocks))
+    out = []
+    for batch in it.iter_torch_batches(
+            batch_size=bs, sharding=NamedSharding(
+                mesh, logical_to_spec(("batch", "seq"))),
+            dtypes={"x": torch.float64}, prefetch_batches=2):
+        out.append({k: {"local": v.to_local().numpy().copy(),
+                        "full": v.full_tensor().numpy().copy(),
+                        "dtype": str(v.dtype),
+                        "placements": [repr(p) for p in v.placements]}
+                    for k, v in batch.items()})
+    return out
+
+
 SCENARIOS: Dict[str, Callable] = {
     "sharded_step": sharded_step, "ring": ring, "ring_llama": ring_llama,
     "ring_layer": ring_layer, "moe_ep": moe_ep, "pipeline": pipeline,
-    "ppo_mesh": ppo_mesh}
+    "ppo_mesh": ppo_mesh, "mesh3d_step": mesh3d_step,
+    "data_sharding": data_sharding}

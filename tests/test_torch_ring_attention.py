@@ -17,10 +17,8 @@ CPU devices, as ``tests/test_ops.py`` does, from the same inputs.
   ranks): the loss (1e-5 relative) and every grad (atol = rtol = 1e-4)
   against JAX's on the same mesh; and Llama's ring_seq layer on the 8-rank
   ``(fsdp=2, seq=2, tensor=2)`` mesh of ``__graft_entry__.dryrun_multichip``
-  against JAX's. The whole Llama on that three-dim mesh is not run here:
-  DTensor's sharding propagation plans redistributions of the projections'
-  merged (batch, seq) dims over three mesh dims with its graph search, and
-  one forward did not finish in five minutes of CPU."""
+  against JAX's. The whole Llama on that three-dim mesh is held in
+  ``tests/test_torch_mesh3d.py``."""
 
 import dataclasses
 import os

@@ -407,4 +407,5 @@ def test_left_out_modules_raise_not_implemented(port_cluster):
 
     with pytest.raises(NotImplementedError, match="DAG"):
         f.bind()
-    assert "item 12" in str(not_ported("x"))
+    assert 'Queue 1, "The runtime modules left out of the copy"' in str(
+        not_ported("x"))

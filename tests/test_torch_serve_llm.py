@@ -181,8 +181,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 def test_package_imports_no_jax_and_no_ray_tpu():
-    """Every module of the package, the runtime's copy included, imports
-    neither jax nor ``ray_tpu``; no import statement names them, and no
+    """Every module of the package, the runtime's and Data's copies
+    included, imports neither jax nor ``ray_tpu``; no import statement names them, and no
     string is a jax or ``ray_tpu`` module path (``python -m ...``)."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -190,6 +190,9 @@ def test_package_imports_no_jax_and_no_ray_tpu():
         "names = [m.name for m in pkgutil.walk_packages(\n"
         "    ray_tpu_torch.__path__, 'ray_tpu_torch.')]\n"
         "assert len(names) > 60, names\n"
+        "assert {'ray_tpu_torch.data', 'ray_tpu_torch.data.iterator',\n"
+        "        'ray_tpu_torch.data._internal.streaming_shuffle'} <= "
+        "set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
