@@ -184,8 +184,29 @@ Phases, in order; any failure raises and the exit code is not 0:
     params, AdamW moments, step) each. At least one exploit; the restored
     trial's steps bit-equal to an in-driver replay from its donor's
     checkpoint at the mutated lr, the others' to their replays; K1-K3 in
-    both actors. Then the session's shutdown checks cover both phases'
-    workers and actors.
+    both actors.
+32. (The same session.) RLlib's PPO with the learner on the card
+    (``learners()`` at its default device) and 2 CPU env runner actors of
+    4 envs each, on ``_CartPole``, gymnasium's CartPole-v1 in numpy (the
+    chip machine has no gymnasium; the env class travels to the runners by
+    value from ``__main__``): ``PPOConfig().env_runners(num_env_runners=2,
+    num_envs_per_env_runner=4, rollout_fragment_length=64).training(
+    train_batch_size=512, minibatch_size=128, num_epochs=4)``, 5
+    iterations. The learner's params on ``cuda``, no runner with a GPU
+    lease or CUDA initialized; iteration 1's training batch replayed on a
+    CPU ``PPOLearner`` from the same starting weights within phase 25's
+    tolerances; exact env-step counts, finite metrics, a checkpoint loaded
+    into a fresh ``PPO`` with equal weights, ``compute_single_action`` in
+    {0, 1}; each iteration's wall, the runners' sample s, the learner's
+    update ms (CUDA events) and the mean return, logged.
+33. (The same session.) APPO (IMPALA's async loop, V-trace, the clipped
+    surrogate) with the learner on the card and 2 CPU runners, 4
+    fragments a step, 3 steps: the first fragment's update against a CPU
+    ``APPOLearner`` from the same weights within phase 25's tolerances,
+    ``vtrace`` on that fragment on the card against the CPU (1e-5), 4
+    fragments consumed every step. Then the session's shutdown checks
+    cover phases 30-33's workers and actors. Neither phase launches
+    K1-K3: RLlib's modules are MLPs.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -205,6 +226,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 import torch
@@ -2809,6 +2831,9 @@ TOL_PIPE_Y_REL, TOL_PIPE_GRAD_REL = 1e-2, 1e-4
 # from the same params and batch: sums in other orders (~1e-6), as the CPU
 # tests hold the port to JAX; scalars of cancelling terms against 0.1
 TOL_PPO, TOL_PPO_UPDATE = 1e-5, 1e-3
+# phase 33: V-trace's recursion on the card against the CPU on the same
+# inputs, relative to the largest entry (sums in other orders)
+TOL_VTRACE = 1e-5
 
 
 def phase_moe_ep(inproc_metrics):
@@ -3014,6 +3039,21 @@ def phase_pipeline():
     return launches
 
 
+def _rel_err(got, want):
+    """A metric's error: relative to the value, or to 0.1 where it is
+    smaller (scalars of cancelling terms)."""
+    return abs(got - want) / max(abs(want), 0.1)
+
+
+def _update_err(got, want, init):
+    """Each leaf's distance from ``want`` against the norm of its update
+    from ``init``, the largest over the leaves (Adam's first step is about
+    lr * sign(g): an entry whose gradient is near 0 can step another way on
+    the two, as in the CPU tests)."""
+    return max(((a - b).norm() / (b - c).norm()).item() for a, b, c in zip(
+        tree_leaves(got), tree_leaves(want), tree_leaves(init)))
+
+
 def phase_ppo():
     """Phase 25: ``PPOLearner`` on the card (fp32, TF32 off) against the
     CPU learner with the same params (the card's, copied) on the same batch:
@@ -3040,16 +3080,10 @@ def phase_ppo():
         first[name] = {k: float(v) for k, v in m.items()}
     w0 = card.get_weights()
     upd = {"card": card.update(batch), "cpu": host.update(batch)}
-    errs = {k: abs(first["card"][k] - v) / max(abs(v), 0.1)
-            for k, v in first["cpu"].items()}
-    errs.update({f"update {k}": abs(upd["card"][k] - v) / max(abs(v), 0.1)
+    errs = {k: _rel_err(first["card"][k], v) for k, v in first["cpu"].items()}
+    errs.update({f"update {k}": _rel_err(upd["card"][k], v)
                  for k, v in upd["cpu"].items()})
-    # each leaf's distance from the CPU's against the norm of its update
-    # (Adam's first step is about lr * sign(g): an entry whose gradient is
-    # near 0 can step another way on the two, as in the CPU tests)
-    p_err = max(((a - b).norm() / (b - c).norm()).item() for a, b, c in zip(
-        tree_leaves(card.get_weights()), tree_leaves(host.get_weights()),
-        tree_leaves(w0)))
+    p_err = _update_err(card.get_weights(), host.get_weights(), w0)
     log(f"[25] PPOLearner (obs 8, 4 actions, B={B}) on {card.device} "
         f"against the CPU: first minibatch {first['card']} vs "
         f"{first['cpu']}; update {upd['card']} vs {upd['cpu']}; largest "
@@ -3136,16 +3170,17 @@ def replay_steps(base, cfg, lcfg, batch, lr, n, tree=None):
     return out
 
 
-def phase_tune(card):
+def phase_tune(card, in_session=None):
     """Phases 30 and 31 in one session of the port's runtime
-    (``ray_tpu_torch.init(num_gpus=1)``), then the shutdown checks. Phase
+    (``ray_tpu_torch.init(num_gpus=1)``), then ``in_session(card)`` in the
+    same session (phases 32-33), then the shutdown checks. Phase
     30: ``Tuner(TorchTrainer(...))`` sweeps ``lr`` over ASHA_LRS with ASHA,
     one trial at a time, each trial's GPU worker running ``lora_trial``.
     Phase 31: PBT over 2 function trainables of ``lora_trial`` that hold
     half the card each. Every trial's losses are held bit-equal against an
     in-driver replay (a PBT trial restored from a donor's checkpoint from
     that checkpoint at its mutated lr). Returns the (K1, K2, K3) launches
-    of each phase's trials."""
+    of each phase's trials and what ``in_session`` returned."""
     import shutil
     import tempfile
 
@@ -3340,6 +3375,10 @@ def phase_tune(card):
                                            PBT_ITERS)
                           for lr in (TUNE_LRS[0], TUNE_LRS[-1])}
         del base
+        session_out = None
+        if in_session is not None:
+            tag = "32-33"
+            session_out = in_session(card)
     except BaseException:
         _log_tail(session_dir, tag=tag)
         raise
@@ -3457,7 +3496,335 @@ def phase_tune(card):
     _check_session_gone("31", session_dir, procs, avail_before, workers)
     n30 = [sum(r["launches"][i] for _, r in rec30.results) for i in range(3)]
     n31 = [sum(r["launches"][i] for _, r in rec31.results) for i in range(3)]
-    return n30, n31
+    return n30, n31, session_out
+
+
+# phases 32-33: RLlib's on-policy family with the learner on the card and
+# CPU env runners, on a numpy CartPole (the chip machine has no gymnasium)
+class _CartPole:
+    """gymnasium's ``CartPole-v1`` in numpy, step for step: its dynamics
+    (Euler, tau 0.02), its limits (|x| > 2.4 or |theta| > 12 degrees
+    terminates, 500 steps truncate, as ``gymnasium.make`` wraps it), reward
+    1 up to and including the step the pole falls, the start state drawn
+    uniform in [-0.05, 0.05] from ``np.random.default_rng(seed)`` (which is
+    ``gymnasium.utils.seeding.np_random(seed)``'s stream). Its spaces are
+    read by duck typing: ``n`` actions; ``low``, ``high``, ``shape`` and
+    ``dtype`` of the observations."""
+
+    MAX_STEPS = 500
+    gravity, masscart, masspole, length = 9.8, 1.0, 0.1, 0.5
+    force_mag, tau = 10.0, 0.02
+    total_mass = masspole + masscart
+    polemass_length = masspole * length
+    theta_threshold = 12 * 2 * np.pi / 360
+    x_threshold = 2.4
+
+    def __init__(self, config=None):
+        high = np.array([self.x_threshold * 2, np.inf,
+                         self.theta_threshold * 2, np.inf], np.float32)
+        self.observation_space = types.SimpleNamespace(
+            low=-high, high=high, shape=high.shape, dtype=np.float32)
+        self.action_space = types.SimpleNamespace(n=2)
+        self._rng = np.random.default_rng()
+        self.state = None
+        self._steps = 0
+        self._fell = False
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self.state = self._rng.uniform(low=-0.05, high=0.05, size=(4,))
+        self._steps, self._fell = 0, False
+        return np.array(self.state, dtype=np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = self.force_mag if action == 1 else -self.force_mag
+        costheta = np.cos(theta)
+        sintheta = np.sin(theta)
+        temp = (force + self.polemass_length * np.square(theta_dot)
+                * sintheta) / self.total_mass
+        thetaacc = (self.gravity * sintheta - costheta * temp) / (
+            self.length * (4.0 / 3.0 - self.masspole * np.square(costheta)
+                           / self.total_mass))
+        xacc = temp - self.polemass_length * thetaacc * costheta \
+            / self.total_mass
+        x = x + self.tau * x_dot
+        x_dot = x_dot + self.tau * xacc
+        theta = theta + self.tau * theta_dot
+        theta_dot = theta_dot + self.tau * thetaacc
+        self.state = np.array((x, x_dot, theta, theta_dot), dtype=np.float64)
+        terminated = bool(x < -self.x_threshold or x > self.x_threshold
+                          or theta < -self.theta_threshold
+                          or theta > self.theta_threshold)
+        reward = 0.0 if self._fell else 1.0
+        self._fell = self._fell or terminated
+        self._steps += 1
+        return (np.array(self.state, dtype=np.float32), reward, terminated,
+                self._steps >= self.MAX_STEPS, {})
+
+    def close(self):
+        pass
+
+
+RL_ITERS = 5          # phase 32's PPO iterations
+APPO_STEPS = 3        # phase 33's APPO steps
+
+
+def _rl_learner_device():
+    """The learners' device as a user asks for it: the default (None, the
+    card) on the card, the CPU in a CPU rehearsal."""
+    return None if DEVICE == "cuda" else DEVICE
+
+
+def _timed(fn):
+    """(fn(), ms): CUDA events around the call on the card, the host clock
+    on the CPU."""
+    if DEVICE != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _rl_runner_check(tag, algo):
+    """Every env runner of ``algo`` is a CPU actor: no GPU lease (no
+    ``CUDA_VISIBLE_DEVICES`` of its own) and CUDA never initialized in it;
+    the learner's params on the learners' device."""
+    import ray_tpu_torch
+
+    reports = ray_tpu_torch.get([r.device_report.remote()
+                                 for r in algo.env_runners], timeout=60)
+    learner = algo.learner_group.local_learner()
+    devices = {str(p.device) for p in tree_leaves(learner.params)}
+    want = "cuda:0" if DEVICE == "cuda" else "cpu"
+    if devices != {want}:
+        raise AssertionError(f"[{tag}] the learner's params on {devices}, "
+                             f"want {want}")
+    for r in reports:
+        if r["cuda_visible_devices"] not in (None, "") or \
+                r["cuda_initialized"]:
+            raise AssertionError(f"[{tag}] an env runner touched CUDA: {r}")
+    return devices, reports
+
+
+def phase_rl_ppo(card):
+    """Phase 32: PPO with the learner on the card (``learners()`` left at
+    its default device) and 2 CPU env runners of 4 numpy CartPoles each,
+    64 steps a fragment, train batch 512, minibatch 128, 4 epochs; 5
+    iterations in the port's runtime session of phases 30-31. Iteration
+    1's training batch (``_postprocess``'s output) replayed on a CPU
+    ``PPOLearner`` from the same starting weights: its metrics within
+    TOL_PPO, its params within TOL_PPO_UPDATE. Exact env-step counts,
+    finite metrics, a checkpoint loaded into a fresh ``PPO`` with equal
+    weights, ``compute_single_action`` in {0, 1}."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.rllib import PPO, PPOConfig
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+
+    cfg = (PPOConfig()
+           .environment(_CartPole)
+           .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                        rollout_fragment_length=64)
+           .training(train_batch_size=512, minibatch_size=128, num_epochs=4)
+           .learners(device=_rl_learner_device())
+           .debugging(seed=0))
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    t_build = time.perf_counter() - t0
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ppo_")
+    try:
+        devices, reports = _rl_runner_check("32", algo)
+        w0 = algo.get_weights()
+        batches, samples_of, update_ms = [], [], []
+        post, update = algo._postprocess, algo.learner_group.update
+
+        def record_post(samples):
+            samples_of.append(samples)
+            batches.append(post(samples))
+            return batches[-1]
+
+        def timed_update(batch):
+            out, ms = _timed(lambda: update(batch))
+            update_ms.append(ms)
+            return out
+
+        algo._postprocess = record_post
+        algo.learner_group.update = timed_update
+        results, walls = [], []
+        for i in range(RL_ITERS):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                w1 = algo.get_weights()
+        for i, r in enumerate(results):
+            steps = r["env_steps_this_iter"]
+            bad = [k for k, v in r.items() if isinstance(v, float)
+                   and not np.isfinite(v)]
+            if steps != 512 or \
+                    r["num_env_steps_sampled_lifetime"] != 512 * (i + 1) or \
+                    bad:
+                raise AssertionError(f"[32] iteration {i + 1}: {steps} env "
+                                     f"steps, lifetime "
+                                     f"{r['num_env_steps_sampled_lifetime']}"
+                                     f", not finite {bad}")
+        # iteration 1's batch on a CPU learner from the same weights
+        host = PPOLearner(algo._module_spec, cfg.learner_config_dict(),
+                          device="cpu")
+        host.set_weights(w0)
+        want = host.update(batches[0])
+        errs = {k: _rel_err(results[0][k], v) for k, v in want.items()}
+        p_err = _update_err(w1, host.get_weights(), w0)
+        # the checkpoint into a fresh PPO (no runners: only the learner)
+        algo.save_checkpoint(ckpt)
+        fresh = PPO(config=cfg.copy().env_runners(num_env_runners=0))
+        try:
+            fresh.load_checkpoint(ckpt)
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(fresh.get_weights()),
+                tree_leaves(algo.get_weights())))
+        finally:
+            fresh.stop()
+        action = algo.compute_single_action(np.zeros(4, np.float32))
+    finally:
+        algo.stop()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    sample_s = [[round(s["sample_time_s"], 3) for s in ss]
+                for ss in samples_of]
+    log(f"[32] PPO on the numpy CartPole, learner on {sorted(devices)}, 2 "
+        f"CPU env runners x 4 envs x 64 steps (runners {reports}); build "
+        f"{t_build:.2f} s; per iteration: wall "
+        f"{[round(w, 3) for w in walls]} s, sample_time_s {sample_s}, "
+        f"learner update {[round(m, 2) for m in update_ms]} ms (16 "
+        f"minibatch steps), episode_return_mean "
+        f"{[round(r['episode_return_mean'], 2) for r in results]}; "
+        f"iteration 1 replayed on a CPU PPOLearner: {results[0]['total_loss']:.6f} "
+        f"against {want['total_loss']:.6f} total loss, largest relative "
+        f"difference {max(errs.values()):.2e} (tol {TOL_PPO:g}), params "
+        f"{p_err:.2e} of the update (tol {TOL_PPO_UPDATE:g}); checkpoint "
+        f"round trip equal: {same}; compute_single_action {action}; {card}")
+    if max(errs.values()) > TOL_PPO:
+        raise AssertionError(f"[32] iteration 1 on the card disagrees with "
+                             f"the CPU replay: {errs}")
+    if p_err > TOL_PPO_UPDATE:
+        raise AssertionError(f"[32] the params after iteration 1 differ by "
+                             f"{p_err} of the update")
+    if not same:
+        raise AssertionError("[32] the checkpoint did not restore the "
+                             "weights")
+    if int(action) not in (0, 1):
+        raise AssertionError(f"[32] compute_single_action gave {action}")
+    return {"walls": walls, "update_ms": update_ms}
+
+
+def phase_rl_appo(card):
+    """Phase 33: APPO (IMPALA's async loop, V-trace, the clipped surrogate)
+    with the learner on the card and 2 CPU env runners (4 numpy CartPoles,
+    64 steps a fragment), 4 fragments a step, 3 steps. The first fragment's
+    update against a CPU ``APPOLearner`` from the same weights (metrics
+    within TOL_PPO, params within TOL_PPO_UPDATE); ``vtrace`` on that
+    fragment on the card against the CPU (1e-5); 4 fragments consumed every
+    step."""
+    from ray_tpu_torch.rllib import APPOConfig
+    from ray_tpu_torch.rllib.algorithms.appo.appo import APPOLearner
+    from ray_tpu_torch.rllib.utils.vtrace import vtrace
+
+    cfg = (APPOConfig()
+           .environment(_CartPole)
+           .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                        rollout_fragment_length=64)
+           .training(num_fragments_per_step=4)
+           .learners(device=_rl_learner_device())
+           .debugging(seed=0))
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    t_build = time.perf_counter() - t0
+    try:
+        devices, _ = _rl_runner_check("33", algo)
+        learner = algo.learner_group.local_learner()
+        first, update_ms = {}, []
+        update = learner.update
+
+        def recorded_update(batch):
+            if not first:
+                first.update(w0=learner.get_weights(), batch=batch)
+            out, ms = _timed(lambda: update(batch))
+            update_ms.append(ms)
+            if "metrics" not in first:
+                first.update(metrics=out, w1=learner.get_weights())
+            return out
+
+        learner.update = recorded_update
+        results, walls = [], []
+        for _ in range(APPO_STEPS):
+            t0 = time.perf_counter()
+            results.append(algo.step())
+            walls.append(time.perf_counter() - t0)
+    finally:
+        algo.stop()
+    consumed = [r["num_fragments_consumed"] for r in results]
+    host = APPOLearner(algo._module_spec, cfg.learner_config_dict(),
+                       device="cpu")
+    host.set_weights(first["w0"])
+    want = host.update(first["batch"])
+    errs = {k: _rel_err(first["metrics"][k], v) for k, v in want.items()}
+    p_err = _update_err(first["w1"], host.get_weights(), first["w0"])
+    # vtrace on the first fragment's inputs (the CPU forward at w0), on the
+    # card and on the CPU
+    b = {k: torch.as_tensor(np.asarray(v)) for k, v in first["batch"].items()}
+    with torch.no_grad():
+        out = host.module.forward(first["w0"], b["obs"].transpose(0, 1))
+        target_logp = host.module.dist.logp(out["logits"],
+                                            b["actions"].long().T)
+    args = (b["logp"].T, target_logp, b["rewards"].T, out["vf"],
+            b["dones"].T, b["bootstrap"])
+    want_vt = vtrace(*args, gamma=cfg.gamma)
+    got_vt = vtrace(*(a.to(DEVICE) for a in args), gamma=cfg.gamma)
+    vt_err = max(_rel_max(g.cpu(), w) for g, w in zip(got_vt, want_vt))
+    log(f"[33] APPO on the numpy CartPole, learner on {sorted(devices)}, 2 "
+        f"CPU env runners x 4 envs x 64 steps, 4 fragments a step: build "
+        f"{t_build:.2f} s; per step: wall {[round(w, 3) for w in walls]} s, "
+        f"fragments consumed {consumed}, env steps "
+        f"{[r['env_steps_this_iter'] for r in results]}, learner update "
+        f"{[round(m, 2) for m in update_ms]} ms; the first fragment's "
+        f"update against a CPU APPOLearner: largest relative difference "
+        f"{max(errs.values()):.2e} (tol {TOL_PPO:g}), params {p_err:.2e} of "
+        f"the update (tol {TOL_PPO_UPDATE:g}); vtrace (T=64, B=4) on "
+        f"{DEVICE} against the CPU {vt_err:.2e} (tol {TOL_VTRACE:g}); {card}")
+    if consumed != [4] * APPO_STEPS or any(
+            r["env_steps_this_iter"] != 4 * 4 * 64 for r in results):
+        raise AssertionError(f"[33] fragments consumed {consumed}")
+    if max(errs.values()) > TOL_PPO or p_err > TOL_PPO_UPDATE:
+        raise AssertionError(f"[33] the first update on the card disagrees "
+                             f"with the CPU: {errs}, params {p_err}")
+    if vt_err > TOL_VTRACE:
+        raise AssertionError(f"[33] vtrace on the card disagrees: {vt_err}")
+    return {"walls": walls, "update_ms": update_ms}
+
+
+def phase_rl(card):
+    """Phases 32 and 33, in the session of phases 30-31, with this
+    process's K1-K3 counts set to 0 before them: RLlib's path launches
+    none."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = {"ppo": phase_rl_ppo(card)}
+    t1 = time.perf_counter()
+    out["appo"] = phase_rl_appo(card)
+    t2 = time.perf_counter()
+    log(f"[32-33] phase 32 {t1 - t0:.2f} s, phase 33 {t2 - t1:.2f} s; "
+        f"K1/K2/K3 launches in this process: {counts()}; {card}")
+    if counts() != (0, 0, 0):
+        raise AssertionError(f"[32-33] RLlib's path launched {counts()}")
+    return out
 
 
 def main() -> int:
@@ -3522,7 +3889,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_ppo()
     phase_dryrun()
-    tune_asha, tune_pbt = phase_tune(card)
+    tune_asha, tune_pbt, _ = phase_tune(card, in_session=phase_rl)
 
     # K1 at the serving path's B=4, S=128 (its headline numbers) and at the
     # training paths' B=1 and B=4, S=2048; K2 and K3 at the training shapes

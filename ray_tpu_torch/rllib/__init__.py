@@ -1,11 +1,59 @@
-"""ray_tpu_torch.rllib — the RL core of ``ray_tpu.rllib`` on PyTorch: RL
-modules (functional params and forward), the model catalog, the learners
-(PPO's loss, ``clip_adam``, the data mesh) and the learner group. The
-algorithms, env runners and connectors are not ported yet."""
+"""ray_tpu_torch.rllib — ``ray_tpu.rllib`` on PyTorch: RL modules
+(functional params and forward), the model catalog, the learners (the
+losses, ``clip_adam``, the data mesh) and the learner group; the env
+runners (CPU actors over the port's own vector env, ``env/vector.py``),
+connectors, offline IO and estimators, the replay buffer, V-trace;
+``Algorithm`` on the port's Tune ``Trainable``; and the on-policy family:
+PPO, multi-agent PPO, A2C, DD-PPO, IMPALA and APPO. The learners run on the
+CUDA card unless the config asks for the CPU
+(``AlgorithmConfig.learners(device="cpu")``).
 
+The reference's other algorithm families are not ported yet: their names
+raise ``NotImplementedError`` here (ROADMAP Queue 1, item 4).
+"""
+
+from ray_tpu_torch.rllib.algorithms import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms.a2c import A2C, A2CConfig
+from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig
+from ray_tpu_torch.rllib.algorithms.ddppo import DDPPO, DDPPOConfig
+from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig
+from ray_tpu_torch.rllib.algorithms.ppo import (
+    MultiAgentPPO, MultiAgentPPOConfig, PPO, PPOConfig)
 from ray_tpu_torch.rllib.core.learner import Learner, PPOLearner
 from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.core.rl_module import MLPModule, RLModuleSpec
+from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner
+from ray_tpu_torch.rllib.env.multi_agent_env import (
+    MultiAgentEnv, MultiAgentEnvRunner)
+from ray_tpu_torch.rllib.env.policy_client import PolicyClient
+from ray_tpu_torch.rllib.env.policy_server_input import PolicyServerInput
 
-__all__ = ["Learner", "LearnerGroup", "MLPModule", "PPOLearner",
-           "RLModuleSpec"]
+__all__ = [
+    "Algorithm", "AlgorithmConfig", "PPO", "PPOConfig", "DDPPO",
+    "DDPPOConfig", "A2C", "A2CConfig", "APPO", "APPOConfig", "IMPALA",
+    "IMPALAConfig", "Learner", "PPOLearner", "LearnerGroup", "MLPModule",
+    "RLModuleSpec", "SingleAgentEnvRunner", "MultiAgentEnv",
+    "MultiAgentEnvRunner", "MultiAgentPPO", "MultiAgentPPOConfig",
+    "PolicyClient", "PolicyServerInput",
+]
+
+# the rest of the reference's ``__all__``: the algorithm families still to
+# port
+NOT_PORTED = (
+    "DQN", "DQNConfig", "ApexDQN", "ApexDQNConfig", "R2D2", "R2D2Config",
+    "SAC", "SACConfig", "DDPG", "DDPGConfig", "TD3", "TD3Config", "CQL",
+    "CQLConfig", "BC", "BCConfig", "MARWIL", "MARWILConfig", "CRR",
+    "CRRConfig", "ES", "ESConfig", "ARS", "ARSConfig", "BanditLinUCB",
+    "BanditLinUCBConfig", "BanditLinTS", "BanditLinTSConfig", "MADDPG",
+    "MADDPGConfig", "QMIX", "QMIXConfig", "AlphaZero", "AlphaZeroConfig",
+    "DreamerV3", "DreamerV3Config",
+)
+
+
+def __getattr__(name: str):
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"ray_tpu_torch.rllib has no port of {name} yet: it is one of "
+            "the RLlib algorithms still to port (ROADMAP Queue 1, item 4, "
+            "\"The other RLlib algorithms\")")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -317,23 +317,40 @@ def test_sessions_apart_from_the_jax_package(port_cluster, jax_reference):
 
 def test_gpu_lease_sets_cuda_visible_devices(port_cluster):
     """``init(resources={"GPU": 1})``: an actor with ``num_gpus=1`` sees
-    ``CUDA_VISIBLE_DEVICES=0`` and has touched no CUDA (torch is not even
-    imported in its process)."""
+    ``CUDA_VISIBLE_DEVICES=0``, and the lease touches no CUDA: a fresh
+    process with the actor's environment that loads the worker's stack and
+    applies the lease's device ids has not imported torch. (The actor's own
+    process may be an idle worker that ran a tensor task before, so it is
+    not the one asked.)"""
     assert ray_tpu_torch.cluster_resources().get("GPU") == 1.0
 
     @ray_tpu_torch.remote(num_gpus=1)
     class GpuHolder:
         def where(self):
             import os as _os
+            import subprocess as _sp
             import sys as _sys
 
+            import ray_tpu_torch as _pkg
+
+            code = ("import os, sys\n"
+                    "from ray_tpu_torch._private import worker_process\n"
+                    "worker_process._apply_accelerator_env({'GPU': [0]})\n"
+                    "print(os.environ['CUDA_VISIBLE_DEVICES'], "
+                    "'torch' in sys.modules)\n")
+            root = _os.path.dirname(_os.path.dirname(_pkg.__file__))
+            env = dict(_os.environ, PYTHONPATH=root)
+            res = _sp.run([_sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=60)
             return (_os.environ.get("CUDA_VISIBLE_DEVICES"),
-                    "torch" in _sys.modules)
+                    res.stdout.split(), res.stderr[-2000:])
 
     actor = GpuHolder.remote()
     try:
-        assert ray_tpu_torch.get(actor.where.remote(), timeout=60) == ("0",
-                                                                      False)
+        visible, fresh, err = ray_tpu_torch.get(actor.where.remote(),
+                                                timeout=90)
+        assert visible == "0"
+        assert fresh == ["0", "False"], err
     finally:
         ray_tpu_torch.kill(actor)
 

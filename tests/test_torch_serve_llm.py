@@ -182,8 +182,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 def test_package_imports_no_jax_and_no_ray_tpu():
     """Every module of the package, the runtime's, Data's and Tune's copies
-    included, imports neither jax nor ``ray_tpu``; no import statement names them, and no
-    string is a jax or ``ray_tpu`` module path (``python -m ...``)."""
+    and RLlib's rollout and algorithm layers included, imports neither jax
+    nor ``ray_tpu``; no import statement names them, and no string is a jax
+    or ``ray_tpu`` module path (``python -m ...``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ray_tpu_torch\n"
@@ -194,7 +195,20 @@ def test_package_imports_no_jax_and_no_ray_tpu():
         "        'ray_tpu_torch.data._internal.streaming_shuffle',\n"
         "        'ray_tpu_torch.tune', 'ray_tpu_torch.tune.tuner',\n"
         "        'ray_tpu_torch.tune.execution.tune_controller',\n"
-        "        'ray_tpu_torch.air.integrations'} <= "
+        "        'ray_tpu_torch.air.integrations',\n"
+        "        'ray_tpu_torch.rllib.env.env_runner',\n"
+        "        'ray_tpu_torch.rllib.env.vector',\n"
+        "        'ray_tpu_torch.rllib.env.multi_agent_env',\n"
+        "        'ray_tpu_torch.rllib.env.policy_server_input',\n"
+        "        'ray_tpu_torch.rllib.utils.vtrace',\n"
+        "        'ray_tpu_torch.rllib.connectors.connector',\n"
+        "        'ray_tpu_torch.rllib.offline.json_io',\n"
+        "        'ray_tpu_torch.rllib.algorithms.algorithm',\n"
+        "        'ray_tpu_torch.rllib.algorithms.ppo.multi_agent',\n"
+        "        'ray_tpu_torch.rllib.algorithms.a2c.a2c',\n"
+        "        'ray_tpu_torch.rllib.algorithms.ddppo.ddppo',\n"
+        "        'ray_tpu_torch.rllib.algorithms.impala.impala',\n"
+        "        'ray_tpu_torch.rllib.algorithms.appo.appo'} <= "
         "set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -230,15 +230,32 @@ def test_pbt_runs_and_perturbs(port_cluster, tmp_path):
 
 
 def test_median_stopping(port_cluster, tmp_path):
+    """The rule stops the ``v=0.0`` trial only once two other trials have
+    reported: each trial waits (up to 60 s) until all four have started,
+    and paces its reports, so that the trials overlap under load too."""
+    started = tmp_path / "started"
+    started.mkdir()
+
     def objective(config):
+        import os
+        import time
+        import uuid
+
         from ray_tpu_torch import tune
 
+        d = config["started"]
+        open(os.path.join(d, uuid.uuid4().hex), "w").close()
+        deadline = time.monotonic() + 60
+        while len(os.listdir(d)) < 4 and time.monotonic() < deadline:
+            time.sleep(0.02)
         for _ in range(15):
+            time.sleep(0.05)
             tune.report({"m": config["v"]})
 
     results = Tuner(
         objective,
-        param_space={"v": tune.grid_search([1.0, 1.0, 1.0, 0.0])},
+        param_space={"v": tune.grid_search([1.0, 1.0, 1.0, 0.0]),
+                     "started": str(started)},
         tune_config=TuneConfig(
             metric="m", mode="max", max_concurrent_trials=4,
             scheduler=MedianStoppingRule(grace_period=3,
@@ -549,6 +566,30 @@ def test_tune_imports_no_jax_and_no_ray_tpu():
         "import ray_tpu_torch.tune.schedulers.pb2\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ray_tpu', 'torch')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_rllib_trainables_import_no_jax_and_no_ray_tpu():
+    """RLlib's ``Algorithm`` is a Tune ``Trainable``: the modules that
+    subclass it (``algorithm``, PPO, multi-agent PPO, A2C, DD-PPO, IMPALA,
+    APPO) load Tune without jax, the JAX package or gymnasium."""
+    code = (
+        "import importlib, sys\n"
+        "from ray_tpu_torch.tune.trainable import Trainable\n"
+        "mods = ['algorithm', 'ppo.ppo', 'ppo.multi_agent', 'a2c.a2c',\n"
+        "        'ddppo.ddppo', 'impala.impala', 'appo.appo']\n"
+        "for m in mods:\n"
+        "    importlib.import_module('ray_tpu_torch.rllib.algorithms.' + m)\n"
+        "from ray_tpu_torch.rllib import (A2C, APPO, DDPPO, IMPALA, PPO,\n"
+        "                                 Algorithm, MultiAgentPPO)\n"
+        "assert all(issubclass(c, Trainable) for c in (\n"
+        "    A2C, APPO, DDPPO, IMPALA, PPO, Algorithm, MultiAgentPPO))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ray_tpu', 'gymnasium')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
