@@ -181,10 +181,11 @@ Phases, in order; any failure raises and the exit code is not 0:
     ``PopulationBasedTraining(perturbation_interval=2,
     hyperparam_mutations={"lr": [1e-4, 3e-4, 1e-3, 3e-3]}, seed=0)``, 6
     iterations of one LoRA step and one checkpoint of the state (LoRA
-    params, AdamW moments, step) each. At least one exploit; the restored
-    trial's steps bit-equal to an in-driver replay from its donor's
-    checkpoint at the mutated lr, the others' to their replays; K1-K3 in
-    both actors.
+    params, AdamW moments, step) each; the two first trials start stepping
+    together (each waits for the other's process). At least one exploit;
+    the restored trial's steps bit-equal to an in-driver replay from its
+    donor's checkpoint at the mutated lr, the others' to their replays;
+    K1-K3 in both actors.
 32. (The same session.) RLlib's PPO with the learner on the card
     (``learners()`` at its default device) and 2 CPU env runner actors of
     4 envs each, on ``_CartPole``, gymnasium's CartPole-v1 in numpy (the
@@ -205,8 +206,29 @@ Phases, in order; any failure raises and the exit code is not 0:
     ``APPOLearner`` from the same weights within phase 25's tolerances,
     ``vtrace`` on that fragment on the card against the CPU (1e-5), 4
     fragments consumed every step. Then the session's shutdown checks
-    cover phases 30-33's workers and actors. Neither phase launches
+    cover phases 30-35's workers and actors. Neither phase launches
     K1-K3: RLlib's modules are MLPs.
+34. (The same session.) RLlib's DQN (double Q, dueling, prioritized
+    replay) with the learner on the card and 2 CPU env runners of 4
+    ``_CartPole`` each, 16 steps a fragment, batch 64, 2 updates an
+    iteration once 256 valid steps are stored, a hard target sync every 256
+    steps, 5 iterations: the first update's replay batch replayed on a CPU
+    ``DQNLearner`` from the same weights and target net within phase 25's
+    tolerances (and its td errors within 1e-5); every target sync leaves
+    the target net equal to the online one; a checkpoint loaded into a
+    fresh ``DQN`` restores the weights and the target net;
+    ``compute_single_action`` in {0, 1}; no runner with a GPU lease or CUDA
+    initialized.
+35. (The same session.) SAC (twin Q, auto-tuned alpha, polyak targets,
+    (256, 256) towers) with the learner on the card and 2 CPU env runners
+    of 4 ``_Pendulum`` each (gymnasium's Pendulum-v1 in numpy), batch 128,
+    4 iterations: the first update replayed on a CPU ``SACLearner`` from
+    the same weights and target critics with the card's random draws,
+    within phase 25's tolerances; then on a batch of 256 from SAC's replay
+    buffer, two TD3 updates (the second steps the delayed actor) and one
+    CQL update on the card against the CPU with the same draws. Each
+    iteration's wall, the learner's update ms (CUDA events) and the phase's
+    seconds are logged; K1-K3 are counted at 0 around phases 34-35.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -3257,6 +3279,17 @@ def phase_tune(card, in_session=None):
                 "restored_from": ckpt.path if ckpt is not None else None,
                 "device": (torch.cuda.get_device_name(0) if dev.type == "cuda"
                            else "cpu")}
+        if pbt and ckpt is None:
+            # PBT's first trials start stepping together: a trial whose
+            # process came up late could reach its perturbation points only
+            # after the other had finished, with no one left to exploit
+            open(os.path.join(config["barrier"], str(os.getpid())),
+                 "w").close()
+            deadline = time.time() + 300
+            while len(os.listdir(config["barrier"])) < 2:
+                if time.time() > deadline:
+                    raise TimeoutError("the other PBT trial never started")
+                time.sleep(0.05)
         while state.step < config["iters"]:
             before = (fa.launches, fa.dq_launches, fa.dkv_launches)
             if dev.type == "cuda":
@@ -3338,6 +3371,7 @@ def phase_tune(card, in_session=None):
         grid31 = tune.Tuner(
             lora_trial,
             param_space=dict(common, api="tune", iters=PBT_ITERS,
+                             barrier=tempfile.mkdtemp(dir=storage),
                              lr=tune.grid_search([TUNE_LRS[0],
                                                   TUNE_LRS[-1]])),
             tune_config=tune.TuneConfig(metric="loss", mode="min",
@@ -3377,7 +3411,7 @@ def phase_tune(card, in_session=None):
         del base
         session_out = None
         if in_session is not None:
-            tag = "32-33"
+            tag = "32-35"
             session_out = in_session(card)
     except BaseException:
         _log_tail(session_dir, tag=tag)
@@ -3562,6 +3596,59 @@ class _CartPole:
         self._steps += 1
         return (np.array(self.state, dtype=np.float32), reward, terminated,
                 self._steps >= self.MAX_STEPS, {})
+
+    def close(self):
+        pass
+
+
+class _Pendulum:
+    """gymnasium's ``Pendulum-v1`` in numpy, step for step: its dynamics
+    (g 10, m = l = 1, dt 0.05, speed clipped to 8, torque to 2), its reward
+    -(angle_normalize(th)^2 + 0.1 thdot^2 + 0.001 u^2), never terminated,
+    200 steps truncate (as ``gymnasium.make`` wraps it), the start state
+    (th, thdot) drawn uniform in [-pi, pi] x [-1, 1] from
+    ``np.random.default_rng(seed)``. Its spaces are read by duck typing:
+    ``low``, ``high``, ``shape`` and ``dtype``."""
+
+    MAX_STEPS = 200
+    max_speed, max_torque, dt, g, m, l = 8.0, 2.0, 0.05, 10.0, 1.0, 1.0
+
+    def __init__(self, config=None):
+        high = np.array([1.0, 1.0, self.max_speed], np.float32)
+        self.observation_space = types.SimpleNamespace(
+            low=-high, high=high, shape=high.shape, dtype=np.float32)
+        self.action_space = types.SimpleNamespace(
+            low=np.array([-self.max_torque], np.float32),
+            high=np.array([self.max_torque], np.float32), shape=(1,),
+            dtype=np.float32)
+        self._rng = np.random.default_rng()
+        self.state = None
+        self._steps = 0
+
+    def _obs(self):
+        th, thdot = self.state
+        return np.array([np.cos(th), np.sin(th), thdot], dtype=np.float32)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        high = np.array([np.pi, 1.0])
+        self.state = self._rng.uniform(low=-high, high=high)
+        self._steps = 0
+        return self._obs(), {}
+
+    def step(self, u):
+        th, thdot = self.state
+        u = np.clip(u, -self.max_torque, self.max_torque)[0]
+        th_norm = ((th + np.pi) % (2 * np.pi)) - np.pi
+        costs = th_norm ** 2 + 0.1 * thdot ** 2 + 0.001 * (u ** 2)
+        newthdot = thdot + (3 * self.g / (2 * self.l) * np.sin(th)
+                            + 3.0 / (self.m * self.l ** 2) * u) * self.dt
+        newthdot = np.clip(newthdot, -self.max_speed, self.max_speed)
+        newth = th + newthdot * self.dt
+        self.state = np.array([newth, newthdot])
+        self._steps += 1
+        return self._obs(), -costs, False, self._steps >= self.MAX_STEPS, {}
 
     def close(self):
         pass
@@ -3810,10 +3897,291 @@ def phase_rl_appo(card):
     return {"walls": walls, "update_ms": update_ms}
 
 
+DQN_ITERS = 5         # phase 34's DQN iterations
+SAC_ITERS = 4         # phase 35's SAC iterations
+
+
+def _moved_update_err(got, want, init):
+    """``_update_err`` over the leaves that moved from ``init``; a leaf
+    that did not move in ``want`` (DQN's epsilon) must equal it in
+    ``got``."""
+    moving = []
+    for a, b, c in zip(tree_leaves(got), tree_leaves(want),
+                       tree_leaves(init)):
+        if torch.equal(b, c):
+            if not torch.equal(a, b):
+                raise AssertionError("a leaf moved on one side only")
+        else:
+            moving.append(((a - b).norm() / (b - c).norm()).item())
+    return max(moving)
+
+
+def _check_replay(tag, got, want, w1, host_w, w0, what):
+    """A card update's metrics and params against the CPU's replay of it:
+    (largest metric error, params error), raising beyond TOL_PPO and
+    TOL_PPO_UPDATE."""
+    errs = {k: _rel_err(got[k], v) for k, v in want.items()}
+    p_err = _moved_update_err(w1, host_w, w0)
+    if max(errs.values()) > TOL_PPO or p_err > TOL_PPO_UPDATE:
+        raise AssertionError(f"[{tag}] {what} on the card disagrees with the "
+                             f"CPU: {errs}, params {p_err}")
+    return max(errs.values()), p_err
+
+
+def _record_updates(learner, draws=False):
+    """Wrap ``learner.update`` (and its ``_draws``) to keep the first
+    update's inputs and outputs, on the CPU, and every update's ms."""
+    from ray_tpu_torch.rllib.core.learner import cpu_snapshot
+
+    first, update_ms = {}, []
+    update = learner.update
+    if draws:
+        make = learner._draws
+
+        def recorded_draws(n):
+            out = make(n)
+            first.setdefault("draws", {k: v.cpu() for k, v in out.items()})
+            return out
+
+        learner._draws = recorded_draws
+
+    def recorded(batch, **kw):
+        if "batch" not in first:
+            first.update(batch=dict(batch), w0=learner.get_weights(),
+                         t0=cpu_snapshot(learner.target_params))
+        out, ms = _timed(lambda: update(batch, **kw))
+        update_ms.append(ms)
+        if "metrics" not in first:
+            # a copy: DQN's training step pops the td errors from ``out``
+            first.update(metrics=dict(out), w1=learner.get_weights())
+        return out
+
+    learner.update = recorded
+    return first, update_ms
+
+
+def phase_rl_dqn(card):
+    """Phase 34: DQN (double Q, dueling, prioritized replay) with the
+    learner on the card and 2 CPU env runners of 4 numpy CartPoles, 16
+    steps a fragment; 128 env steps an iteration, learning once 256 valid
+    steps are stored, then 2 updates of batch 64 an iteration, a hard
+    target sync every 256 steps; 5 iterations. The first update's replay
+    batch replayed on a CPU ``DQNLearner`` from the same weights and
+    target net (metrics within TOL_PPO, params within TOL_PPO_UPDATE);
+    each target sync leaves the target net equal to the online one; a
+    checkpoint into a fresh ``DQN`` restores the weights and the target
+    net; no runner touches CUDA."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.rllib import DQN, DQNConfig
+    from ray_tpu_torch.rllib.algorithms.dqn.dqn import DQNLearner, load_tree
+
+    cfg = (DQNConfig()
+           .environment(_CartPole)
+           .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                        rollout_fragment_length=16)
+           .training(lr=1e-3, train_batch_size=64,
+                     num_steps_sampled_before_learning_starts=256,
+                     target_network_update_freq=256,
+                     training_intensity=1.0, prioritized_replay=True)
+           .learners(device=_rl_learner_device())
+           .debugging(seed=0))
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    t_build = time.perf_counter() - t0
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_dqn_")
+    try:
+        devices, _ = _rl_runner_check("34", algo)
+        learner = algo.learner_group.local_learner()
+        first, update_ms = _record_updates(learner)
+        sync, syncs = learner.sync_target, []
+
+        def checked_sync(tau=1.0):
+            sync(tau)
+            syncs.append(all(torch.equal(t, p) for t, p in zip(
+                tree_leaves(learner.target_params),
+                tree_leaves(learner.params))))
+
+        learner.sync_target = checked_sync
+        results, walls = [], []
+        for _ in range(DQN_ITERS):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+        algo.save_checkpoint(ckpt)
+        fresh = DQN(config=cfg.copy().env_runners(num_env_runners=0))
+        try:
+            fresh.load_checkpoint(ckpt)
+            got = fresh.learner_group.local_learner()
+            same = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got.get_state()["target_params"]) +
+                tree_leaves(got.get_weights()),
+                tree_leaves(learner.get_state()["target_params"]) +
+                tree_leaves(learner.get_weights())))
+        finally:
+            fresh.stop()
+        action = algo.compute_single_action(np.zeros(4, np.float32))
+    finally:
+        algo.stop()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    host = DQNLearner(algo._module_spec, cfg.learner_config_dict(),
+                      device="cpu")
+    host.set_weights(first["w0"])
+    load_tree(host.target_params, first["t0"])
+    want = host.update(first["batch"])
+    want.pop("_batch_indexes")
+    want_td = want.pop("_td_error")
+    got = dict(first["metrics"])
+    got.pop("_batch_indexes")
+    td_err = _rel_max(torch.as_tensor(got.pop("_td_error")),
+                      torch.as_tensor(want_td))
+    m_err, p_err = _check_replay("34", got, want, first["w1"],
+                                 host.get_weights(), first["w0"],
+                                 "the first DQN update")
+    steps = [r["env_steps_this_iter"] for r in results]
+    log(f"[34] DQN on the numpy CartPole, learner on {sorted(devices)}, 2 "
+        f"CPU env runners x 4 envs x 16 steps: build {t_build:.2f} s; per "
+        f"iteration: wall {[round(w, 3) for w in walls]} s, env steps "
+        f"{steps}, td_error_mean "
+        f"{[round(r.get('td_error_mean', float('nan')), 4) for r in results]}"
+        f"; {len(update_ms)} learner updates (batch 64) "
+        f"{[round(m, 2) for m in update_ms]} ms; the first update on a CPU "
+        f"DQNLearner: largest metric difference {m_err:.2e} (tol "
+        f"{TOL_PPO:g}), td errors {td_err:.2e}, params {p_err:.2e} of the "
+        f"update (tol {TOL_PPO_UPDATE:g}); target syncs {len(syncs)}, equal "
+        f"to the online net {syncs}; checkpoint round trip equal: {same}; "
+        f"compute_single_action {action}; {card}")
+    # learning starts once the replay holds 256 valid steps (the runners'
+    # autoreset steps are not stored): 2 updates an iteration from then on
+    learned = sum("td_error_mean" in r for r in results)
+    if steps != [128] * DQN_ITERS or learned < 2 or \
+            len(update_ms) != 2 * learned:
+        raise AssertionError(f"[34] env steps {steps}, {len(update_ms)} "
+                             f"updates in {learned} iterations")
+    if td_err > TOL_PPO:
+        raise AssertionError(f"[34] td errors differ by {td_err}")
+    if not syncs or not all(syncs):
+        raise AssertionError(f"[34] target syncs {syncs}")
+    if not same:
+        raise AssertionError("[34] the checkpoint did not restore the "
+                             "weights and the target net")
+    if int(action) not in (0, 1):
+        raise AssertionError(f"[34] compute_single_action gave {action}")
+    return {"walls": walls, "update_ms": update_ms}
+
+
+def _fixed_batch_replay(tag, name, learner_cls, spec, lcfg, batch, n):
+    """``n`` updates of ``learner_cls`` on ``batch`` on the card and on the
+    CPU from the card's weights and target net, the CPU fed the card's
+    draws: (largest metric error, params error, the card's update ms)."""
+    from ray_tpu_torch.rllib.algorithms.dqn.dqn import load_tree
+
+    card_l = learner_cls(spec, dict(lcfg), device=_rl_learner_device())
+    host = learner_cls(spec, dict(lcfg), device="cpu")
+    w0 = card_l.get_weights()
+    host.set_weights(w0)
+    load_tree(host.target_params, card_l.get_state()["target_params"])
+    errs, ms = [], []
+    for _ in range(n):
+        draws = card_l._draws(len(batch["obs"]))
+        got, t = _timed(lambda: card_l.update(batch, draws=draws))
+        want = host.update(batch, draws={k: v.cpu()
+                                         for k, v in draws.items()})
+        ms.append(t)
+        errs.append(max(_rel_err(got[k], v) for k, v in want.items()))
+    p_err = _moved_update_err(card_l.get_weights(), host.get_weights(), w0)
+    if max(errs) > TOL_PPO or p_err > TOL_PPO_UPDATE:
+        raise AssertionError(f"[{tag}] {name} on the card disagrees with the "
+                             f"CPU: metrics {errs}, params {p_err}")
+    return max(errs), p_err, ms
+
+
+def phase_rl_sac(card):
+    """Phase 35: SAC (twin Q, auto-tuned alpha, polyak targets; the
+    default (256, 256) towers) with the learner on the card and 2 CPU env
+    runners of 4 numpy Pendulums, 16 steps a fragment; 128 env steps an
+    iteration, learning once 256 valid steps are stored, then one update
+    of batch 128 an iteration; 4 iterations. The first update replayed on
+    a CPU ``SACLearner`` from the same weights and target critics with the
+    card's draws (metrics within TOL_PPO, params within TOL_PPO_UPDATE);
+    then, on a batch of 256 from SAC's replay buffer, two TD3 updates (the
+    second steps the delayed actor) and one CQL update on the card against
+    the CPU with the same draws; no runner touches CUDA."""
+    from ray_tpu_torch.rllib import CQLConfig, SACConfig, TD3Config
+    from ray_tpu_torch.rllib.algorithms.cql.cql import CQLLearner
+    from ray_tpu_torch.rllib.algorithms.ddpg.ddpg import (
+        DDPGLearner, DDPGModuleSpec)
+    from ray_tpu_torch.rllib.algorithms.dqn.dqn import load_tree
+    from ray_tpu_torch.rllib.algorithms.sac.sac import SACLearner
+
+    cfg = (SACConfig()
+           .environment(_Pendulum)
+           .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                        rollout_fragment_length=16)
+           .training(train_batch_size=128,
+                     num_steps_sampled_before_learning_starts=256)
+           .learners(device=_rl_learner_device())
+           .debugging(seed=0))
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    t_build = time.perf_counter() - t0
+    try:
+        devices, _ = _rl_runner_check("35", algo)
+        learner = algo.learner_group.local_learner()
+        first, update_ms = _record_updates(learner, draws=True)
+        results, walls = [], []
+        for _ in range(SAC_ITERS):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+        fixed = algo.replay.sample(256)
+    finally:
+        algo.stop()
+    spec = algo._module_spec
+    host = SACLearner(spec, cfg.learner_config_dict(), device="cpu")
+    host.set_weights(first["w0"])
+    load_tree(host.target_params, first["t0"])
+    want = host.update(first["batch"], draws=first["draws"])
+    m_err, p_err = _check_replay("35", first["metrics"], want, first["w1"],
+                                 host.get_weights(), first["w0"],
+                                 "the first SAC update")
+    td3 = TD3Config()
+    td3_spec = DDPGModuleSpec(obs_dim=spec.obs_dim,
+                              action_dim=spec.action_dim)
+    td3_m, td3_p, td3_ms = _fixed_batch_replay(
+        "35", "TD3", DDPGLearner, td3_spec, td3.learner_config_dict(),
+        fixed, 2)
+    cql = CQLConfig()
+    cql_m, cql_p, cql_ms = _fixed_batch_replay(
+        "35", "CQL", CQLLearner, spec, cql.learner_config_dict(), fixed, 1)
+    steps = [r["env_steps_this_iter"] for r in results]
+    log(f"[35] SAC on the numpy Pendulum, learner on {sorted(devices)}, 2 "
+        f"CPU env runners x 4 envs x 16 steps: build {t_build:.2f} s; per "
+        f"iteration: wall {[round(w, 3) for w in walls]} s, env steps "
+        f"{steps}, critic_loss "
+        f"{[round(r.get('critic_loss', float('nan')), 4) for r in results]},"
+        f" alpha {[round(r.get('alpha', float('nan')), 5) for r in results]}"
+        f"; {len(update_ms)} learner updates (batch 128) "
+        f"{[round(m, 2) for m in update_ms]} ms; the first update on a CPU "
+        f"SACLearner with the card's draws: largest metric difference "
+        f"{m_err:.2e} (tol {TOL_PPO:g}), params {p_err:.2e} of the update "
+        f"(tol {TOL_PPO_UPDATE:g}); on a fixed batch of 256: TD3 x 2 "
+        f"{[round(m, 2) for m in td3_ms]} ms, metrics {td3_m:.2e}, params "
+        f"{td3_p:.2e}; CQL {[round(m, 2) for m in cql_ms]} ms, metrics "
+        f"{cql_m:.2e}, params {cql_p:.2e}; {card}")
+    learned = sum("critic_loss" in r for r in results)
+    if steps != [128] * SAC_ITERS or learned < 2 or \
+            len(update_ms) != learned:
+        raise AssertionError(f"[35] env steps {steps}, {len(update_ms)} "
+                             f"updates in {learned} iterations")
+    return {"walls": walls, "update_ms": update_ms, "td3_ms": td3_ms,
+            "cql_ms": cql_ms}
+
+
 def phase_rl(card):
-    """Phases 32 and 33, in the session of phases 30-31, with this
-    process's K1-K3 counts set to 0 before them: RLlib's path launches
-    none."""
+    """Phases 32-35, in the session of phases 30-31, with this process's
+    K1-K3 counts set to 0 before them: RLlib's path launches none."""
     reset_counts()
     t0 = time.perf_counter()
     out = {"ppo": phase_rl_ppo(card)}
@@ -3824,6 +4192,16 @@ def phase_rl(card):
         f"K1/K2/K3 launches in this process: {counts()}; {card}")
     if counts() != (0, 0, 0):
         raise AssertionError(f"[32-33] RLlib's path launched {counts()}")
+    reset_counts()
+    t3 = time.perf_counter()
+    out["dqn"] = phase_rl_dqn(card)
+    t4 = time.perf_counter()
+    out["sac"] = phase_rl_sac(card)
+    t5 = time.perf_counter()
+    log(f"[34-35] phase 34 {t4 - t3:.2f} s, phase 35 {t5 - t4:.2f} s; "
+        f"K1/K2/K3 launches in this process: {counts()}; {card}")
+    if counts() != (0, 0, 0):
+        raise AssertionError(f"[34-35] RLlib's path launched {counts()}")
     return out
 
 

@@ -24,7 +24,10 @@ one device per process), gloo on the CPU or NCCL on the cards:
 
 The two process gates always run on the CPU over gloo: 4 rank processes
 grouped as 2 hosts of 2 (the JAX gates' 2 processes of 2 devices), which
-rendezvous on a ``TCPStore``.
+rendezvous on a ``TCPStore``. Every group's store is served by the process
+that launches its ranks, bound to a port the kernel picks and held until the
+ranks are done; the ranks join it as clients, so no port is released and
+taken again between its choice and the rendezvous.
 
     python -m ray_tpu_torch.dryrun [--ranks N] [--device cpu|cuda]
 """
@@ -36,7 +39,6 @@ import json
 import os
 import pickle
 import re
-import socket
 import subprocess
 import sys
 import tempfile
@@ -89,10 +91,24 @@ def _section(name: str, verbose: bool = True):
         print(f"[dryrun] {name}: ok in {dt:.1f}s", flush=True)
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+@contextlib.contextmanager
+def _rendezvous():
+    """A ``TCPStore`` served from this process on a port the kernel picks,
+    for the length of the block: its ``host:port``."""
+    store = dist.TCPStore("localhost", 0, is_master=True,
+                          wait_for_workers=False)
+    try:
+        yield f"localhost:{store.port}"
+    finally:
+        del store
+
+
+def _join_group(backend: str, coord: str, world: int, rank: int) -> None:
+    """Join the ``world``-rank group whose store serves at ``coord``."""
+    host, port = coord.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), world, is_master=False)
+    dist.init_process_group(backend, store=store, world_size=world,
+                            rank=rank)
 
 
 # ------------------------------------------------------ the ranks' sections
@@ -271,7 +287,7 @@ def _multichip_sections(n: int, dev: torch.device, sections, verbose: bool
                 f"loss={loss7b:.4f} ok")
 
 
-def _rank_main(rank: int, world: int, port: int, device_type: str,
+def _rank_main(rank: int, world: int, coord: str, device_type: str,
                sections, out_path: str) -> None:
     """One rank of the dry run: join the group, run the sections, and on
     rank 0 write their times to ``out_path``."""
@@ -283,9 +299,8 @@ def _rank_main(rank: int, world: int, port: int, device_type: str,
     else:
         torch.set_num_threads(1)
         dev = resolve_device("cpu")
-    dist.init_process_group(
-        "nccl" if device_type == "cuda" else "gloo",
-        init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+    _join_group("nccl" if device_type == "cuda" else "gloo", coord, world,
+                rank)
     try:
         _multichip_sections(world, dev, sections, verbose=rank == 0)
         if rank == 0:
@@ -298,9 +313,9 @@ def _rank_main(rank: int, world: int, port: int, device_type: str,
 def _run_ranks(n: int, device_type: str, sections) -> List[Tuple[str, float]]:
     import torch.multiprocessing as mp
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, _rendezvous() as coord:
         out = os.path.join(tmp, "times.pkl")
-        mp.start_processes(_rank_main, args=(n, _free_port(), device_type,
+        mp.start_processes(_rank_main, args=(n, coord, device_type,
                                              tuple(sections), out),
                            nprocs=n, start_method="spawn")
         with open(out, "rb") as f:
@@ -350,8 +365,7 @@ def _join_hosts(host: int, local_rank: int, coord: str) -> int:
     Returns the global rank."""
     torch.set_num_threads(1)
     rank = host * LOCAL + local_rank
-    dist.init_process_group("gloo", init_method=f"tcp://{coord}",
-                            world_size=HOSTS * LOCAL, rank=rank)
+    _join_group("gloo", coord, HOSTS * LOCAL, rank)
     where = torch.tensor([host, local_rank])
     seen = [torch.empty_like(where) for _ in range(HOSTS * LOCAL)]
     dist.all_gather(seen, where)
@@ -448,7 +462,11 @@ def _spawn_entry_workers(flag: str, timeout: float = 900) -> List[str]:
     """Launch the 4 rank processes of a two-host gate (``python -m
     ray_tpu_torch.dryrun <flag> <host> <local_rank> <coord>``) and join
     them, each of whose output must have its ok line."""
-    coord = f"localhost:{_free_port()}"
+    with _rendezvous() as coord:
+        return _run_entry_workers(flag, coord, timeout)
+
+
+def _run_entry_workers(flag: str, coord: str, timeout: float) -> List[str]:
     env = dict(os.environ)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")

@@ -3,10 +3,11 @@
 losses, ``clip_adam``, the data mesh) and the learner group; the env
 runners (CPU actors over the port's own vector env, ``env/vector.py``),
 connectors, offline IO and estimators, the replay buffer, V-trace;
-``Algorithm`` on the port's Tune ``Trainable``; and the on-policy family:
-PPO, multi-agent PPO, A2C, DD-PPO, IMPALA and APPO. The learners run on the
-CUDA card unless the config asks for the CPU
-(``AlgorithmConfig.learners(device="cpu")``).
+``Algorithm`` on the port's Tune ``Trainable``; the on-policy family:
+PPO, multi-agent PPO, A2C, DD-PPO, IMPALA and APPO; the off-policy family:
+DQN, Ape-X DQN, R2D2, SAC, DDPG and TD3, CQL; and the offline family: BC,
+MARWIL and CRR. The learners run on the CUDA card unless the config asks
+for the CPU (``AlgorithmConfig.learners(device="cpu")``).
 
 The reference's other algorithm families are not ported yet: their names
 raise ``NotImplementedError`` here (ROADMAP Queue 1, item 4).
@@ -14,11 +15,21 @@ raise ``NotImplementedError`` here (ROADMAP Queue 1, item 4).
 
 from ray_tpu_torch.rllib.algorithms import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.algorithms.a2c import A2C, A2CConfig
+from ray_tpu_torch.rllib.algorithms.apex import ApexDQN, ApexDQNConfig
 from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig
+from ray_tpu_torch.rllib.algorithms.bc import BC, BCConfig
+from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig
+from ray_tpu_torch.rllib.algorithms.crr import CRR, CRRConfig
+from ray_tpu_torch.rllib.algorithms.ddpg import (
+    DDPG, DDPGConfig, TD3, TD3Config)
 from ray_tpu_torch.rllib.algorithms.ddppo import DDPPO, DDPPOConfig
+from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig
 from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig
+from ray_tpu_torch.rllib.algorithms.marwil import MARWIL, MARWILConfig
 from ray_tpu_torch.rllib.algorithms.ppo import (
     MultiAgentPPO, MultiAgentPPOConfig, PPO, PPOConfig)
+from ray_tpu_torch.rllib.algorithms.r2d2 import R2D2, R2D2Config
+from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig
 from ray_tpu_torch.rllib.core.learner import Learner, PPOLearner
 from ray_tpu_torch.rllib.core.learner_group import LearnerGroup
 from ray_tpu_torch.rllib.core.rl_module import MLPModule, RLModuleSpec
@@ -34,16 +45,16 @@ __all__ = [
     "IMPALAConfig", "Learner", "PPOLearner", "LearnerGroup", "MLPModule",
     "RLModuleSpec", "SingleAgentEnvRunner", "MultiAgentEnv",
     "MultiAgentEnvRunner", "MultiAgentPPO", "MultiAgentPPOConfig",
-    "PolicyClient", "PolicyServerInput",
+    "PolicyClient", "PolicyServerInput", "DQN", "DQNConfig", "ApexDQN",
+    "ApexDQNConfig", "R2D2", "R2D2Config", "SAC", "SACConfig", "DDPG",
+    "DDPGConfig", "TD3", "TD3Config", "CQL", "CQLConfig", "BC", "BCConfig",
+    "MARWIL", "MARWILConfig", "CRR", "CRRConfig",
 ]
 
 # the rest of the reference's ``__all__``: the algorithm families still to
 # port
 NOT_PORTED = (
-    "DQN", "DQNConfig", "ApexDQN", "ApexDQNConfig", "R2D2", "R2D2Config",
-    "SAC", "SACConfig", "DDPG", "DDPGConfig", "TD3", "TD3Config", "CQL",
-    "CQLConfig", "BC", "BCConfig", "MARWIL", "MARWILConfig", "CRR",
-    "CRRConfig", "ES", "ESConfig", "ARS", "ARSConfig", "BanditLinUCB",
+    "ES", "ESConfig", "ARS", "ARSConfig", "BanditLinUCB",
     "BanditLinUCBConfig", "BanditLinTS", "BanditLinTSConfig", "MADDPG",
     "MADDPGConfig", "QMIX", "QMIXConfig", "AlphaZero", "AlphaZeroConfig",
     "DreamerV3", "DreamerV3Config",

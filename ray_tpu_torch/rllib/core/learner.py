@@ -35,6 +35,14 @@ def _full(t: torch.Tensor) -> torch.Tensor:
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
+def cpu_snapshot(tree):
+    """A copy of a tree (an optimizer's ``state_dict``) with every tensor
+    a CPU clone: the optimizer's own steps do not reach it, and it loads on
+    any device."""
+    return tree_map(lambda v: v.detach().cpu().clone()
+                    if isinstance(v, torch.Tensor) else v, tree)
+
+
 def _as_tensor(v, device: torch.device) -> torch.Tensor:
     """A batch column as a tensor: integer actions as int64 (the gather's
     index type), the rest as they are."""
@@ -143,7 +151,7 @@ class Learner:
 
     def get_state(self) -> Dict:
         return {"params": self.get_weights(),
-                "opt_state": self.opt_state.state_dict()}
+                "opt_state": cpu_snapshot(self.opt_state.state_dict())}
 
     def set_state(self, state: Dict) -> None:
         self.set_weights(state["params"])
@@ -185,4 +193,4 @@ class PPOLearner(Learner):
         }
 
 
-__all__ = ["Learner", "PPOLearner"]
+__all__ = ["Learner", "PPOLearner", "cpu_snapshot"]

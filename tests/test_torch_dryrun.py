@@ -159,4 +159,5 @@ def test_dryrun_two_slice_matches_jax(multichip):
 
 def test_dryrun_two_process(multichip):
     losses = multichip[0]["two_process"]
-    assert len(losses) == 4 and len(set(losses)) == 1 and losses[0] > 0
+    assert len(losses) == 4 and len(set(losses)) == 1 and losses[0] > 0, \
+        losses

@@ -201,11 +201,20 @@ RLLIB_MODULES = [
     "ray_tpu_torch.rllib.algorithms.algorithm",
     "ray_tpu_torch.rllib.algorithms.algorithm_config",
     "ray_tpu_torch.rllib.algorithms.a2c.a2c",
+    "ray_tpu_torch.rllib.algorithms.apex.apex",
     "ray_tpu_torch.rllib.algorithms.appo.appo",
+    "ray_tpu_torch.rllib.algorithms.bc.bc",
+    "ray_tpu_torch.rllib.algorithms.cql.cql",
+    "ray_tpu_torch.rllib.algorithms.crr.crr",
+    "ray_tpu_torch.rllib.algorithms.ddpg.ddpg",
     "ray_tpu_torch.rllib.algorithms.ddppo.ddppo",
+    "ray_tpu_torch.rllib.algorithms.dqn.dqn",
     "ray_tpu_torch.rllib.algorithms.impala.impala",
+    "ray_tpu_torch.rllib.algorithms.marwil.marwil",
     "ray_tpu_torch.rllib.algorithms.ppo.multi_agent",
     "ray_tpu_torch.rllib.algorithms.ppo.ppo",
+    "ray_tpu_torch.rllib.algorithms.r2d2.r2d2",
+    "ray_tpu_torch.rllib.algorithms.sac.sac",
     "ray_tpu_torch.rllib.connectors.connector",
     "ray_tpu_torch.rllib.env.env_runner",
     "ray_tpu_torch.rllib.env.multi_agent_env",
@@ -255,12 +264,22 @@ def test_the_algorithms_still_to_port_raise():
     assert {"Algorithm", "AlgorithmConfig", "PPO", "PPOConfig",
             "MultiAgentPPO", "A2C", "DDPPO", "IMPALA", "APPO",
             "SingleAgentEnvRunner", "MultiAgentEnv", "MultiAgentEnvRunner",
-            "PolicyClient", "PolicyServerInput"} <= ported
+            "PolicyClient", "PolicyServerInput", "DQN", "DQNConfig",
+            "ApexDQN", "ApexDQNConfig", "R2D2", "R2D2Config", "SAC",
+            "SACConfig", "DDPG", "DDPGConfig", "TD3", "TD3Config", "CQL",
+            "CQLConfig", "BC", "BCConfig", "MARWIL", "MARWILConfig", "CRR",
+            "CRRConfig"} <= ported
     assert ported <= set(ref_all)
     for name in ported:
         assert getattr(rllib, name) is not None
     missing = [n for n in ref_all if n not in ported]
-    assert len(missing) == 36
+    # the seven families left: ES, ARS, the bandits, MADDPG, QMIX,
+    # AlphaZero and DreamerV3
+    assert sorted(missing) == sorted(rllib.NOT_PORTED) == sorted([
+        "ES", "ESConfig", "ARS", "ARSConfig", "BanditLinUCB",
+        "BanditLinUCBConfig", "BanditLinTS", "BanditLinTSConfig", "MADDPG",
+        "MADDPGConfig", "QMIX", "QMIXConfig", "AlphaZero",
+        "AlphaZeroConfig", "DreamerV3", "DreamerV3Config"])
     for name in missing:
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue 1, item 4"):

@@ -375,6 +375,38 @@ def test_numpy_cartpole_matches_gymnasium():
     assert (te1, tr1) == (False, True)
 
 
+def test_numpy_pendulum_matches_gymnasium():
+    """``chip_smoke.py``'s ``_Pendulum`` (the card's continuous env, no
+    gymnasium) against ``gymnasium.make("Pendulum-v1")`` step for step:
+    1000 steps of one fixed torque sequence, some beyond the torque limit,
+    reset after every 200-step truncation; obs, rewards (their type too),
+    terminated and truncated equal; the spaces' ``shape``, ``low`` and
+    ``high`` equal."""
+    ours, ref = chip_smoke._Pendulum(), gym.make("Pendulum-v1")
+    for space in ("observation_space", "action_space"):
+        assert getattr(ours, space).shape == getattr(ref, space).shape
+        for k in ("low", "high"):
+            assert np.array_equal(getattr(getattr(ours, space), k),
+                                  getattr(getattr(ref, space), k))
+    o1, _ = ours.reset(seed=3)
+    o2, _ = ref.reset(seed=3)
+    assert np.array_equal(o1, o2)
+    rng = np.random.default_rng(9)
+    ends = 0
+    for a in rng.uniform(-2.5, 2.5, (1000, 1)).astype(np.float32):
+        got, want = ours.step(a), ref.step(a)
+        assert np.array_equal(got[0], want[0]) and got[0].dtype == np.float32
+        assert got[1] == want[1] and type(got[1]) is type(want[1])
+        assert got[2:4] == want[2:4]
+        if want[2] or want[3]:
+            assert (want[2], want[3]) == (False, True)
+            ends += 1
+            o1, _ = ours.reset()
+            o2, _ = ref.reset()
+            assert np.array_equal(o1, o2)
+    assert ends == 5
+
+
 # ------------------------------------------------------------ policy server
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

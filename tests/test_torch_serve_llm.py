@@ -182,7 +182,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 def test_package_imports_no_jax_and_no_ray_tpu():
     """Every module of the package, the runtime's, Data's and Tune's copies
-    and RLlib's rollout and algorithm layers included, imports neither jax
+    and RLlib's rollout and algorithm layers and its on-policy, off-policy
+    and offline families included, imports neither jax
     nor ``ray_tpu``; no import statement names them, and no string is a jax
     or ``ray_tpu`` module path (``python -m ...``)."""
     code = (
@@ -208,7 +209,16 @@ def test_package_imports_no_jax_and_no_ray_tpu():
         "        'ray_tpu_torch.rllib.algorithms.a2c.a2c',\n"
         "        'ray_tpu_torch.rllib.algorithms.ddppo.ddppo',\n"
         "        'ray_tpu_torch.rllib.algorithms.impala.impala',\n"
-        "        'ray_tpu_torch.rllib.algorithms.appo.appo'} <= "
+        "        'ray_tpu_torch.rllib.algorithms.appo.appo',\n"
+        "        'ray_tpu_torch.rllib.algorithms.dqn.dqn',\n"
+        "        'ray_tpu_torch.rllib.algorithms.apex.apex',\n"
+        "        'ray_tpu_torch.rllib.algorithms.r2d2.r2d2',\n"
+        "        'ray_tpu_torch.rllib.algorithms.sac.sac',\n"
+        "        'ray_tpu_torch.rllib.algorithms.ddpg.ddpg',\n"
+        "        'ray_tpu_torch.rllib.algorithms.cql.cql',\n"
+        "        'ray_tpu_torch.rllib.algorithms.bc.bc',\n"
+        "        'ray_tpu_torch.rllib.algorithms.marwil.marwil',\n"
+        "        'ray_tpu_torch.rllib.algorithms.crr.crr'} <= "
         "set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
