@@ -229,6 +229,32 @@ Phases, in order; any failure raises and the exit code is not 0:
     CQL update on the card against the CPU with the same draws. Each
     iteration's wall, the learner's update ms (CUDA events) and the phase's
     seconds are logged; K1-K3 are counted at 0 around phases 34-35.
+36. (The same session.) DreamerV3 at the reference's defaults (deter 128,
+    8 x 8 latents, hidden 128, horizon 10, batch 8 x 16, train_ratio 64)
+    with the learner on the card and 1 CPU env runner of 4 numpy
+    ``_Chain``s (the reference tests' corridor), 16 steps a fragment, 3
+    iterations (32 updates in each of the last two): every update timed
+    with CUDA events (median, min, max), one profiled for its kernel
+    launches and device time; the first update replayed on a CPU
+    ``DreamerLearner`` from the card's state with its batch and Gumbel
+    draws (metrics within 1e-4, params and slow critic within phase 25's
+    update tolerance); the return scale, the slow critic and a checkpoint
+    round trip checked.
+37. (The same session.) QMIX on a numpy CoordGame and MADDPG on a numpy
+    CoopTarget, their state on the card, collecting in the driver until
+    learning starts; AlphaZero (50 simulations) with its learner on the
+    card and 2 CPU self-play workers, 1 iteration. Each family's first
+    update replayed on a CPU twin from the same state and batch within
+    phase 25's tolerances; update ms by CUDA events.
+38. (The same session.) LinUCB and LinTS with ``A`` and ``b`` on the card,
+    2 iterations of 64 pulls, against CPU twins fed the same contexts and
+    draws (the same arms; ``A``, ``b`` within 1e-5); ES and ARS at the
+    reference's population (32 candidates of 48 steps x 2 envs, the
+    reference test's fragment), one iteration each on 2 CPU runners
+    (nothing of theirs runs on the card: no allocation on it while they
+    run).
+    K1-K3 are counted at 0 around phases 36-38; each phase's seconds are
+    logged on a line of its own.
 
 It prints one JSON line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
@@ -268,6 +294,7 @@ from ray_tpu_torch.ops.cuda import _build
 from ray_tpu_torch.ops.cuda import flash_attention as fa
 from ray_tpu_torch.parallel import (
     adafactor, adamw, create_train_state, make_train_step)
+from ray_tpu_torch.rllib.env.multi_agent_env import MultiAgentEnv
 from ray_tpu_torch.serve.llm import LlamaGenerator
 
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -3916,47 +3943,46 @@ def _moved_update_err(got, want, init):
     return max(moving)
 
 
-def _check_replay(tag, got, want, w1, host_w, w0, what):
+def _check_replay(tag, got, want, w1, host_w, w0, what, tol=TOL_PPO):
     """A card update's metrics and params against the CPU's replay of it:
-    (largest metric error, params error), raising beyond TOL_PPO and
+    (largest metric error, params error), raising beyond ``tol`` and
     TOL_PPO_UPDATE."""
     errs = {k: _rel_err(got[k], v) for k, v in want.items()}
     p_err = _moved_update_err(w1, host_w, w0)
-    if max(errs.values()) > TOL_PPO or p_err > TOL_PPO_UPDATE:
+    if max(errs.values()) > tol or p_err > TOL_PPO_UPDATE:
         raise AssertionError(f"[{tag}] {what} on the card disagrees with the "
                              f"CPU: {errs}, params {p_err}")
     return max(errs.values()), p_err
 
 
-def _record_updates(learner, draws=False):
-    """Wrap ``learner.update`` (and its ``_draws``) to keep the first
-    update's inputs and outputs, on the CPU, and every update's ms."""
-    from ray_tpu_torch.rllib.core.learner import cpu_snapshot
-
+def _record_first(obj, state_fn, **draws):
+    """Wrap ``obj.update`` to keep the first update's batch, the state
+    before and after it (``state_fn()``, CPU copies) and its metrics, and
+    every update's ms (CUDA events on the card). ``draws`` names a method
+    of ``obj`` that makes the update's random draws: the first call's
+    result is kept too."""
     first, update_ms = {}, []
-    update = learner.update
-    if draws:
-        make = learner._draws
+    update = obj.update
+    for name in draws.values():
+        make = getattr(obj, name)
 
-        def recorded_draws(n):
-            out = make(n)
+        def recorded_draws(*a, _make=make):
+            out = _make(*a)
             first.setdefault("draws", {k: v.cpu() for k, v in out.items()})
             return out
 
-        learner._draws = recorded_draws
+        setattr(obj, name, recorded_draws)
 
     def recorded(batch, **kw):
         if "batch" not in first:
-            first.update(batch=dict(batch), w0=learner.get_weights(),
-                         t0=cpu_snapshot(learner.target_params))
+            first.update(batch=dict(batch), s0=state_fn())
         out, ms = _timed(lambda: update(batch, **kw))
         update_ms.append(ms)
         if "metrics" not in first:
-            # a copy: DQN's training step pops the td errors from ``out``
-            first.update(metrics=dict(out), w1=learner.get_weights())
+            first.update(metrics=dict(out), s1=state_fn())
         return out
 
-    learner.update = recorded
+    obj.update = recorded
     return first, update_ms
 
 
@@ -3976,6 +4002,7 @@ def phase_rl_dqn(card):
 
     from ray_tpu_torch.rllib import DQN, DQNConfig
     from ray_tpu_torch.rllib.algorithms.dqn.dqn import DQNLearner, load_tree
+    from ray_tpu_torch.rllib.core.learner import cpu_snapshot
 
     cfg = (DQNConfig()
            .environment(_CartPole)
@@ -3994,7 +4021,9 @@ def phase_rl_dqn(card):
     try:
         devices, _ = _rl_runner_check("34", algo)
         learner = algo.learner_group.local_learner()
-        first, update_ms = _record_updates(learner)
+        first, update_ms = _record_first(learner, lambda: {
+            "params": learner.get_weights(),
+            "target": cpu_snapshot(learner.target_params)})
         sync, syncs = learner.sync_target, []
 
         def checked_sync(tau=1.0):
@@ -4027,8 +4056,8 @@ def phase_rl_dqn(card):
         shutil.rmtree(ckpt, ignore_errors=True)
     host = DQNLearner(algo._module_spec, cfg.learner_config_dict(),
                       device="cpu")
-    host.set_weights(first["w0"])
-    load_tree(host.target_params, first["t0"])
+    host.set_weights(first["s0"]["params"])
+    load_tree(host.target_params, first["s0"]["target"])
     want = host.update(first["batch"])
     want.pop("_batch_indexes")
     want_td = want.pop("_td_error")
@@ -4036,8 +4065,8 @@ def phase_rl_dqn(card):
     got.pop("_batch_indexes")
     td_err = _rel_max(torch.as_tensor(got.pop("_td_error")),
                       torch.as_tensor(want_td))
-    m_err, p_err = _check_replay("34", got, want, first["w1"],
-                                 host.get_weights(), first["w0"],
+    m_err, p_err = _check_replay("34", got, want, first["s1"]["params"],
+                                 host.get_weights(), first["s0"]["params"],
                                  "the first DQN update")
     steps = [r["env_steps_this_iter"] for r in results]
     log(f"[34] DQN on the numpy CartPole, learner on {sorted(devices)}, 2 "
@@ -4114,6 +4143,7 @@ def phase_rl_sac(card):
         DDPGLearner, DDPGModuleSpec)
     from ray_tpu_torch.rllib.algorithms.dqn.dqn import load_tree
     from ray_tpu_torch.rllib.algorithms.sac.sac import SACLearner
+    from ray_tpu_torch.rllib.core.learner import cpu_snapshot
 
     cfg = (SACConfig()
            .environment(_Pendulum)
@@ -4129,7 +4159,9 @@ def phase_rl_sac(card):
     try:
         devices, _ = _rl_runner_check("35", algo)
         learner = algo.learner_group.local_learner()
-        first, update_ms = _record_updates(learner, draws=True)
+        first, update_ms = _record_first(learner, lambda: {
+            "params": learner.get_weights(),
+            "target": cpu_snapshot(learner.target_params)}, draws="_draws")
         results, walls = [], []
         for _ in range(SAC_ITERS):
             t0 = time.perf_counter()
@@ -4140,11 +4172,12 @@ def phase_rl_sac(card):
         algo.stop()
     spec = algo._module_spec
     host = SACLearner(spec, cfg.learner_config_dict(), device="cpu")
-    host.set_weights(first["w0"])
-    load_tree(host.target_params, first["t0"])
+    host.set_weights(first["s0"]["params"])
+    load_tree(host.target_params, first["s0"]["target"])
     want = host.update(first["batch"], draws=first["draws"])
-    m_err, p_err = _check_replay("35", first["metrics"], want, first["w1"],
-                                 host.get_weights(), first["w0"],
+    m_err, p_err = _check_replay("35", first["metrics"], want,
+                                 first["s1"]["params"], host.get_weights(),
+                                 first["s0"]["params"],
                                  "the first SAC update")
     td3 = TD3Config()
     td3_spec = DDPGModuleSpec(obs_dim=spec.obs_dim,
@@ -4179,9 +4212,579 @@ def phase_rl_sac(card):
             "cql_ms": cql_ms}
 
 
+# phases 36-38: RLlib's last seven families. The chip machine has no
+# gymnasium: the envs are numpy, their spaces read by duck typing
+class _Chain:
+    """``tests/test_rllib_breadth.py``'s ChainEnv in numpy: a corridor of 8
+    cells from the left end, +1 for reaching the right end (terminated), a
+    cost of 0.01 a step, 24 steps truncate; ``get_state`` / ``set_state``
+    so that AlphaZero's search can use it as its own model."""
+
+    N = 8
+    MAX_STEPS = 24
+
+    def __init__(self, config=None):
+        self.observation_space = types.SimpleNamespace(
+            low=np.zeros(self.N, np.float32), high=np.ones(self.N,
+                                                           np.float32),
+            shape=(self.N,), dtype=np.float32)
+        self.action_space = types.SimpleNamespace(n=2)
+        self._pos = 0
+        self._t = 0
+
+    def _obs(self):
+        obs = np.zeros(self.N, np.float32)
+        obs[self._pos] = 1.0
+        return obs
+
+    def reset(self, *, seed=None, options=None):
+        self._pos, self._t = 0, 0
+        return self._obs(), {}
+
+    def step(self, action):
+        self._t += 1
+        self._pos = min(max(self._pos + (1 if action == 1 else -1), 0),
+                        self.N - 1)
+        done = self._pos == self.N - 1
+        trunc = self._t >= self.MAX_STEPS
+        reward = 1.0 if done else -0.01
+        return self._obs(), reward, done, trunc, {}
+
+    def get_state(self):
+        return (self._pos, self._t)
+
+    def set_state(self, state):
+        self._pos, self._t = state
+
+    def close(self):
+        pass
+
+
+class _CoordGame(MultiAgentEnv):
+    """``tests/test_rllib_qmix_models.py``'s CoordGame in numpy: two agents,
+    3 actions, one step; both picking 2 pays 10, both picking 0 pays 4,
+    any mismatch 0."""
+
+    possible_agents = ["a0", "a1"]
+
+    def __init__(self, config=None):
+        self._obs_space = types.SimpleNamespace(
+            low=np.zeros(2, np.float32), high=np.ones(2, np.float32),
+            shape=(2,), dtype=np.float32)
+        self._act_space = types.SimpleNamespace(n=3)
+
+    @property
+    def observation_spaces(self):
+        return {a: self._obs_space for a in self.possible_agents}
+
+    @property
+    def action_spaces(self):
+        return {a: self._act_space for a in self.possible_agents}
+
+    def reset(self, *, seed=None):
+        obs = np.asarray([1.0, 0.0], np.float32)
+        return {a: obs.copy() for a in self.possible_agents}, {}
+
+    def step(self, action_dict):
+        a0, a1 = action_dict["a0"], action_dict["a1"]
+        team = 10.0 if a0 == a1 == 2 else 4.0 if a0 == a1 == 0 else 0.0
+        obs = {a: np.asarray([0.0, 1.0], np.float32)
+               for a in self.possible_agents}
+        rewards = {a: team / 2 for a in self.possible_agents}
+        return (obs, rewards, {"__all__": True, "a0": True, "a1": True},
+                {"__all__": False}, {})
+
+
+class _CoopTarget(MultiAgentEnv):
+    """``tests/test_rllib_maddpg_bandit.py``'s CoopTargetEnv in numpy: two
+    agents each see a private target in [-1, 1]^2 and act in [-1, 1]; the
+    team reward is -sum((a_i - target_i)^2) a step, 8 steps truncate."""
+
+    HORIZON = 8
+    possible_agents = ["a0", "a1"]
+
+    def __init__(self, config=None):
+        self._box = types.SimpleNamespace(
+            low=-np.ones(2, np.float32), high=np.ones(2, np.float32),
+            shape=(2,), dtype=np.float32)
+        self._act = types.SimpleNamespace(
+            low=-np.ones(1, np.float32), high=np.ones(1, np.float32),
+            shape=(1,), dtype=np.float32)
+        self._rng = np.random.default_rng(0)
+        self._t = 0
+        self._obs = {}
+
+    @property
+    def observation_spaces(self):
+        return {a: self._box for a in self.possible_agents}
+
+    @property
+    def action_spaces(self):
+        return {a: self._act for a in self.possible_agents}
+
+    def _sample_obs(self):
+        return {a: self._rng.uniform(-1, 1, 2).astype(np.float32)
+                for a in self.possible_agents}
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        self._obs = self._sample_obs()
+        return self._obs, {}
+
+    def step(self, action_dict):
+        self._t += 1
+        err = sum((float(np.asarray(action_dict[a]).reshape(-1)[0])
+                   - (0.7 * self._obs[a][0] - 0.4 * self._obs[a][1])) ** 2
+                  for a in self.possible_agents)
+        self._obs = self._sample_obs()
+        done = self._t >= self.HORIZON
+        rewards = {a: -err / 2 for a in self.possible_agents}
+        terms = {a: False for a in self.possible_agents}
+        terms["__all__"] = False
+        truncs = {a: done for a in self.possible_agents}
+        truncs["__all__"] = done
+        return self._obs, rewards, terms, truncs, {}
+
+
+class _ContextBandit:
+    """``tests/test_rllib_maddpg_bandit.py``'s ContextBanditEnv in numpy: 5
+    arms, a context uniform in [-1, 1]^4 a pull, reward ctx . theta_arm +
+    N(0, 0.05) noise, one-step episodes."""
+
+    def __init__(self, config=None):
+        self.observation_space = types.SimpleNamespace(
+            low=-np.ones(4, np.float32), high=np.ones(4, np.float32),
+            shape=(4,), dtype=np.float32)
+        self.action_space = types.SimpleNamespace(n=5)
+        self._thetas = np.random.default_rng(7).normal(0, 0.5, (5, 4))
+        self._rng = np.random.default_rng(0)
+        self._ctx = np.zeros(4, np.float32)
+
+    def reset(self, *, seed=None, options=None):
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._ctx = self._rng.uniform(-1, 1, 4).astype(np.float32)
+        return self._ctx, {}
+
+    def step(self, action):
+        mean = float(self._thetas[int(action)] @ self._ctx)
+        return (self._ctx, mean + float(self._rng.normal(0, 0.05)), True,
+                False, {})
+
+    def close(self):
+        pass
+
+
+DREAMER_ITERS = 3     # phase 36: 4 sequences an iteration; the buffer
+#                       needs 8, so iterations 2 and 3 run 32 updates each
+TOL_DREAMER_REL = 1e-4  # one update's metrics, card against CPU: a chain
+#                         of 26 fp32 steps (the CPU test's tolerance)
+QMIX_ITERS, MADDPG_ITERS, AZ_ITERS = 3, 4, 1   # phase 37
+BANDIT_ITERS = 2      # phase 38: 64 pulls an iteration
+
+
+def _state_equal(a, b):
+    """Two state trees equal leaf for leaf (tensors bit for bit)."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def _update_profile(fn):
+    """(kernel launches, device ms) of one call of ``fn`` from
+    torch.profiler: (None, None) off the card."""
+    if DEVICE != "cuda":
+        fn()
+        return None, None
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches, device_ms = 0, 0.0
+    for e in prof.key_averages():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        launches += e.count
+        device_ms += e.self_device_time_total / 1e3
+    if device_ms <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return launches, device_ms
+
+
+def phase_rl_dreamer(card):
+    """Phase 36: DreamerV3 at the reference's defaults (deter 128, 8 x 8
+    latents, hidden 128, 41 bins, horizon 10, batch 8 x 16, train_ratio
+    64) with the learner on the card and 1 CPU env runner of 4 numpy
+    ``_Chain``s, 16 steps a fragment; 3 iterations, the last two of 32
+    updates each (the buffer holds 8 sequences from iteration 2). Every
+    update timed with CUDA events; one more profiled for its kernel
+    launches and device time. The first update replayed on a CPU
+    ``DreamerLearner`` from the card's state before it, with its batch and
+    its Gumbel draws: metrics within TOL_DREAMER_REL, params and slow
+    critic within TOL_PPO_UPDATE of their update, the return scale within
+    TOL_DREAMER_REL. The return scale after the run equals the last
+    update's metric, the slow critic differs from the critic, and a
+    checkpoint loaded into a fresh ``DreamerV3`` restores the learner's
+    whole state; no runner touches CUDA."""
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.rllib import DreamerV3, DreamerV3Config
+    from ray_tpu_torch.rllib.algorithms.dreamerv3.dreamerv3 import (
+        DreamerLearner)
+
+    cfg = (DreamerV3Config()
+           .environment(_Chain)
+           .env_runners(num_env_runners=1, num_envs_per_env_runner=4,
+                        rollout_fragment_length=16)
+           .learners(device=_rl_learner_device())
+           .debugging(seed=0))
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    t_build = time.perf_counter() - t0
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_dreamer_")
+    try:
+        devices, _ = _rl_runner_check("36", algo)
+        learner = algo.learner_group.local_learner()
+        update = learner.update
+        first, update_ms = _record_first(learner, learner.get_state,
+                                         draws="draws")
+        results, walls = [], []
+        for _ in range(DREAMER_ITERS):
+            t0 = time.perf_counter()
+            results.append(algo.train())
+            walls.append(time.perf_counter() - t0)
+        last_scale = results[-1]["return_scale"]
+        scale = float(learner.ret_scale)
+        slow_moved = not _state_equal(learner.slow_critic,
+                                      learner.params["critic"])
+        launches, device_ms = _update_profile(
+            lambda: update(first["batch"]))
+        algo.save_checkpoint(ckpt)
+        fresh = DreamerV3(config=cfg.copy().env_runners(num_env_runners=0))
+        try:
+            fresh.load_checkpoint(ckpt)
+            same = _state_equal(
+                fresh.learner_group.local_learner().get_state(),
+                learner.get_state())
+        finally:
+            fresh.stop()
+    finally:
+        algo.stop()
+        shutil.rmtree(ckpt, ignore_errors=True)
+    host = DreamerLearner(algo._module_spec, cfg.learner_config_dict(),
+                          device="cpu")
+    host.set_state(first["s0"])
+    want = host.update(first["batch"], draws=first["draws"])
+    s1 = first["s1"]
+    m_err, p_err = _check_replay(
+        "36", first["metrics"], want, s1["params"], host.get_weights(),
+        first["s0"]["params"], "the first DreamerV3 update",
+        tol=TOL_DREAMER_REL)
+    slow_err = _moved_update_err(s1["slow_critic"],
+                                 host.get_state()["slow_critic"],
+                                 first["s0"]["slow_critic"])
+    scale_err = _rel_err(float(s1["ret_scale"]), float(host.ret_scale))
+    med = statistics.median(update_ms)
+    busy = None if device_ms is None else device_ms / med
+    steps = [r["env_steps_this_iter"] for r in results]
+    n_upd = [r.get("updates_this_iter", 0) for r in results]
+    log(f"[36] DreamerV3 (deter 128, 8x8 latents, hidden 128, horizon 10, "
+        f"batch 8x16, train_ratio 64) on the numpy chain, learner on "
+        f"{sorted(devices)}, 1 CPU env runner x 4 envs x 16 steps: build "
+        f"{t_build:.2f} s; per iteration: wall {[round(w, 3) for w in walls]}"
+        f" s, env steps {steps}, updates {n_upd}; {len(update_ms)} updates: "
+        f"median {med:.2f} ms, min {min(update_ms):.2f}, max "
+        f"{max(update_ms):.2f} (CUDA events); one update profiled: "
+        f"{launches} kernel launches, {device_ms} ms of kernels, busy "
+        f"{busy if busy is None else round(busy, 4)} of the median update; "
+        f"wm_loss {[round(r.get('wm_loss', float('nan')), 4) for r in results]}"
+        f"; the first update on a CPU DreamerLearner with the card's draws: "
+        f"largest metric difference {m_err:.2e} (tol {TOL_DREAMER_REL:g}), "
+        f"params {p_err:.2e} and slow critic {slow_err:.2e} of the update "
+        f"(tol {TOL_PPO_UPDATE:g}), return scale {scale_err:.2e}; return "
+        f"scale {scale:.6g} (last metric {last_scale:.6g}); checkpoint round "
+        f"trip equal: {same}; {card}")
+    if steps != [64] * DREAMER_ITERS or n_upd != [0] + [32] * (
+            DREAMER_ITERS - 1) or len(update_ms) != 32 * (DREAMER_ITERS - 1):
+        raise AssertionError(f"[36] env steps {steps}, updates {n_upd}, "
+                             f"{len(update_ms)} timed")
+    if slow_err > TOL_PPO_UPDATE or scale_err > TOL_DREAMER_REL:
+        raise AssertionError(f"[36] the card's update disagrees with the "
+                             f"CPU's: slow critic {slow_err}, return scale "
+                             f"{scale_err}")
+    if scale == 1.0 or abs(scale - last_scale) > 1e-6 * abs(scale) or \
+            not slow_moved or not same:
+        raise AssertionError(f"[36] return scale {scale} (metric "
+                             f"{last_scale}), slow critic moved "
+                             f"{slow_moved}, checkpoint equal {same}")
+    return {"walls": walls, "update_ms": update_ms, "launches": launches,
+            "device_ms": device_ms, "busy": busy}
+
+
+def _cpu_twin_update(tag, what, twin, load, first, params_of):
+    """``first``'s update replayed on ``twin`` (a CPU copy of the
+    algorithm or learner), loaded by ``load(twin, first["s0"])``: (metric
+    error, params error), raising beyond TOL_PPO and TOL_PPO_UPDATE."""
+    load(twin, first["s0"])
+    want = twin.update(first["batch"])
+    return _check_replay(tag, first["metrics"], want, first["s1"]["params"],
+                         params_of(twin), first["s0"]["params"],
+                         f"the first {what} update")
+
+
+def phase_rl_multi_az(card):
+    """Phase 37: QMIX (mixing embed 32, hidden 64) on the numpy
+    ``_CoordGame`` and MADDPG (hidden 64) on the numpy ``_CoopTarget``,
+    their params, targets and Adam state on the card, collecting in the
+    driver (128 steps an iteration) until learning starts (200 and 300
+    stored steps) and then 4 updates an iteration; and AlphaZero (50
+    simulations a move) with its learner on the card and 2 CPU self-play
+    workers on ``_Chain``, 1 iteration of 8 SGD steps. For each family the
+    first update replayed on a CPU twin from the card's state before it,
+    with its batch: metrics within TOL_PPO, params within TOL_PPO_UPDATE
+    of the update; every update timed with CUDA events."""
+    from ray_tpu_torch.rllib import (
+        MADDPG, QMIX, AlphaZeroConfig, MADDPGConfig, QMIXConfig)
+    from ray_tpu_torch.rllib.algorithms.alpha_zero.alpha_zero import (
+        AlphaZeroLearner)
+    from ray_tpu_torch.rllib.algorithms.dqn.dqn import load_tree
+    from ray_tpu_torch.rllib.core.learner import cpu_snapshot
+
+    out = {}
+    # ---- QMIX
+    qcfg = QMIXConfig().environment(_CoordGame).learners(
+        device=_rl_learner_device()).debugging(seed=0)
+    qmix = qcfg.build()
+    first, q_ms = _record_first(qmix, lambda: {
+        "params": cpu_snapshot(qmix.params),
+        "target": cpu_snapshot(qmix.target_params),
+        "opt": cpu_snapshot(qmix.opt.state_dict())})
+    t0 = time.perf_counter()
+    q_res = [qmix.train() for _ in range(QMIX_ITERS)]
+    q_wall = time.perf_counter() - t0
+    q_dev = {str(p.device) for p in tree_leaves(qmix.params)}
+    qmix.stop()
+
+    def load_qmix(twin, s):
+        load_tree(twin.params, s["params"])
+        load_tree(twin.target_params, s["target"])
+        twin.opt.load_state_dict(s["opt"])
+
+    q_m, q_p = _cpu_twin_update(
+        "37", "QMIX", QMIX(qcfg.copy().learners(device="cpu")), load_qmix,
+        first, lambda t: cpu_snapshot(t.params))
+    # ---- MADDPG
+    mcfg = MADDPGConfig().environment(_CoopTarget).learners(
+        device=_rl_learner_device()).debugging(seed=0)
+    maddpg = mcfg.build()
+    first, m_ms = _record_first(maddpg, lambda: {
+        "params": cpu_snapshot(maddpg.params),
+        "target": cpu_snapshot(maddpg.target_params),
+        "opt_a": cpu_snapshot(maddpg.opt_actor.state_dict()),
+        "opt_c": cpu_snapshot(maddpg.opt_critic.state_dict())})
+    t0 = time.perf_counter()
+    m_res = [maddpg.train() for _ in range(MADDPG_ITERS)]
+    m_wall = time.perf_counter() - t0
+    m_dev = {str(p.device) for p in tree_leaves(maddpg.params)}
+    maddpg.stop()
+
+    def load_maddpg(twin, s):
+        load_tree(twin.params, s["params"])
+        load_tree(twin.target_params, s["target"])
+        twin.opt_actor.load_state_dict(s["opt_a"])
+        twin.opt_critic.load_state_dict(s["opt_c"])
+
+    m_m, m_p = _cpu_twin_update(
+        "37", "MADDPG", MADDPG(mcfg.copy().learners(device="cpu")),
+        load_maddpg, first, lambda t: cpu_snapshot(t.params))
+    # ---- AlphaZero
+    acfg = (AlphaZeroConfig().environment(_Chain)
+            .env_runners(num_env_runners=2)
+            .learners(device=_rl_learner_device()).debugging(seed=0))
+    t0 = time.perf_counter()
+    az = acfg.build()
+    a_build = time.perf_counter() - t0
+    try:
+        first, a_ms = _record_first(az.learner, az.learner.get_state)
+        t0 = time.perf_counter()
+        a_res = [az.train() for _ in range(AZ_ITERS)]
+        a_wall = time.perf_counter() - t0
+        a_dev = {str(p.device) for p in tree_leaves(az.learner.params)}
+        action = az.compute_single_action(_Chain()._obs())
+    finally:
+        az.stop()
+    a_m, a_p = _cpu_twin_update(
+        "37", "AlphaZero", AlphaZeroLearner(
+            az._module_spec, {"lr": acfg.lr, "seed": acfg.seed,
+                              "vf_coeff": acfg.vf_coeff}, device="cpu"),
+        lambda t, s: t.set_state(s), first, lambda t: t.get_weights())
+    want_dev = {"cuda:0" if DEVICE == "cuda" else "cpu"}
+    q_learned = sum("qmix_loss" in r for r in q_res)
+    m_learned = sum("critic_loss" in r for r in m_res)
+    for name, ms in (("QMIX", q_ms), ("MADDPG", m_ms), ("AlphaZero", a_ms)):
+        out[name] = ms
+    log(f"[37] QMIX on the numpy CoordGame, params on {sorted(q_dev)}: "
+        f"{QMIX_ITERS} iterations {q_wall:.2f} s, {len(q_ms)} updates "
+        f"(batch 64) median {statistics.median(q_ms):.2f} ms, min "
+        f"{min(q_ms):.2f}, max {max(q_ms):.2f}; the first on a CPU twin: "
+        f"metrics {q_m:.2e}, params {q_p:.2e}; {card}")
+    log(f"[37] MADDPG on the numpy CoopTarget, params on {sorted(m_dev)}: "
+        f"{MADDPG_ITERS} iterations {m_wall:.2f} s, {len(m_ms)} updates "
+        f"(batch 128) median {statistics.median(m_ms):.2f} ms, min "
+        f"{min(m_ms):.2f}, max {max(m_ms):.2f}; the first on a CPU twin: "
+        f"metrics {m_m:.2e}, params {m_p:.2e}; {card}")
+    log(f"[37] AlphaZero (50 simulations) on the numpy chain, learner on "
+        f"{sorted(a_dev)}, 2 CPU self-play workers: build {a_build:.2f} s, "
+        f"iterations {AZ_ITERS} in {a_wall:.2f} s, env steps "
+        f"{[r['env_steps_this_iter'] for r in a_res]}, {len(a_ms)} updates "
+        f"median {statistics.median(a_ms):.2f} ms, min {min(a_ms):.2f}, max "
+        f"{max(a_ms):.2f}; the first on a CPU AlphaZeroLearner: metrics "
+        f"{a_m:.2e}, params {a_p:.2e}; compute_single_action {action}; "
+        f"{card}")
+    if q_dev != want_dev or m_dev != want_dev or a_dev != want_dev:
+        raise AssertionError(f"[37] params on {q_dev}, {m_dev}, {a_dev}")
+    if q_learned != QMIX_ITERS - 1 or len(q_ms) != 4 * q_learned or \
+            m_learned != MADDPG_ITERS - 2 or len(m_ms) != 4 * m_learned or \
+            len(a_ms) != 8 * AZ_ITERS:
+        raise AssertionError(f"[37] updates: QMIX {len(q_ms)} in "
+                             f"{q_learned} iterations, MADDPG {len(m_ms)} "
+                             f"in {m_learned}, AlphaZero {len(a_ms)}")
+    if int(action) not in (0, 1):
+        raise AssertionError(f"[37] compute_single_action gave {action}")
+    return out
+
+
+def phase_rl_bandit_es(card):
+    """Phase 38: LinUCB and LinTS with ``A`` and ``b`` on the card, 2
+    iterations of 64 pulls on the numpy ``_ContextBandit``, each against a
+    CPU twin fed the same contexts (the same seed) and, for LinTS, the
+    card's normal draws: the same arms pull for pull, ``A`` and ``b``
+    within 1e-5 relative. Then ES and ARS at the reference's population
+    (16 antithetic pairs; a candidate's fragment cut from 512 steps x 4
+    envs to 48 x 2) one iteration each on 2 CPU env runners on
+    ``_Chain``: exact env-step counts, theta
+    moved, ARS's filter counting every observation. Nothing of ES or ARS
+    runs on the card: their params live in the driver, the driver makes
+    no allocation on the card while they run, and no runner touches
+    CUDA."""
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import (
+        ARSConfig, BanditLinTSConfig, BanditLinUCBConfig, ESConfig)
+
+    out = {}
+    for kind, cfg_cls in (("LinUCB", BanditLinUCBConfig),
+                          ("LinTS", BanditLinTSConfig)):
+        runs = []
+        drawn = []
+        for twin, dev in ((False, _rl_learner_device()), (True, "cpu")):
+            algo = cfg_cls().environment(_ContextBandit).learners(
+                device=dev).build()
+            arms, step = [], algo._env.step
+
+            def recorded(action, _arms=arms, _step=step):
+                _arms.append(int(action))
+                return _step(action)
+
+            algo._env.step = recorded
+            if kind == "LinTS":
+                if twin:
+                    algo._draws = lambda: drawn.pop(0)
+                else:
+                    make = algo._draws
+
+                    def kept(_make=make):
+                        d = _make()
+                        drawn.append(d.cpu())
+                        return d
+
+                    algo._draws = kept
+            t0 = time.perf_counter()
+            res = [algo.train() for _ in range(BANDIT_ITERS)]
+            wall = time.perf_counter() - t0
+            runs.append((arms, algo.state.A.cpu(), algo.state.b.cpu(), wall,
+                         res[-1]["episode_return_mean"],
+                         str(algo.state.A.device)))
+            algo.stop()
+        (arms, A, b, wall, ret, a_dev), (h_arms, hA, hb, _, _, _) = runs
+        a_err, b_err = _rel_max(A, hA), _rel_max(b, hb)
+        log(f"[38] {kind}, A and b on {a_dev}: {BANDIT_ITERS} iterations "
+            f"of 64 pulls {wall:.3f} s ({wall / (64 * BANDIT_ITERS) * 1e3:.2f}"
+            f" ms a pull), mean reward {ret:.4f}; against the CPU twin: arms "
+            f"equal {arms == h_arms} ({len(set(arms))} distinct), A "
+            f"{a_err:.2e}, b {b_err:.2e} (tol 1e-5); {card}")
+        if arms != h_arms or len(arms) != 64 * BANDIT_ITERS or \
+                a_err > 1e-5 or b_err > 1e-5 or drawn:
+            raise AssertionError(f"[38] {kind} on the card disagrees with the"
+                                 f" CPU: arms {arms == h_arms}, A {a_err}, b "
+                                 f"{b_err}, draws left {len(drawn)}")
+        out[kind] = wall
+    def card_allocations():
+        # allocations made on the card so far (a count that only grows:
+        # memory freed meanwhile by the collector leaves it as it is)
+        return (torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+                if DEVICE == "cuda" else 0)
+
+    allocs0 = card_allocations()
+    for name, cfg in (("ES", ESConfig()), ("ARS", ARSConfig())):
+        # the reference's population; each candidate's fragment cut from
+        # 512 steps x 4 envs to the reference test's 48 x 2 on this
+        # corridor (episodes of at most 24 steps): the phase's time is the
+        # runners' CPU stepping
+        cfg = cfg.environment(_Chain).env_runners(
+            num_env_runners=2, num_envs_per_env_runner=2,
+            rollout_fragment_length=48).debugging(seed=0)
+        t0 = time.perf_counter()
+        algo = cfg.build()
+        t_build = time.perf_counter() - t0
+        try:
+            theta0 = algo._theta.copy()
+            t0 = time.perf_counter()
+            r = algo.train()
+            wall = time.perf_counter() - t0
+            moved = float(np.linalg.norm(algo._theta - theta0))
+            reports = ray_tpu_torch.get([w.device_report.remote()
+                                         for w in algo.env_runners],
+                                        timeout=60)
+        finally:
+            algo.stop()
+        n_steps = 2 * cfg.pop_size * cfg.rollout_fragment_length * \
+            cfg.num_envs_per_env_runner
+        filt = r.get("filter_count")
+        log(f"[38] {name} (population {2 * cfg.pop_size}, "
+            f"{cfg.rollout_fragment_length} steps x "
+            f"{cfg.num_envs_per_env_runner} envs a candidate) on 2 CPU env "
+            f"runners: build {t_build:.2f} s, one iteration {wall:.2f} s, "
+            f"env steps {r['env_steps_this_iter']}, fitness mean "
+            f"{r['fitness_mean']:.4f} max {r['fitness_max']:.4f}, theta moved "
+            f"{moved:.4f}, filter count {filt}; nothing of it runs on the card; "
+            f"{card}")
+        # every candidate alike (none reaches the corridor's end) gives ARS
+        # no direction to step in; ES still decays theta by its l2 term
+        still = name == "ARS" and r["fitness_max"] == r["fitness_mean"]
+        if (r["env_steps_this_iter"] != n_steps
+                or not (moved > 0 or still)
+                or (name == "ARS" and filt != n_steps)
+                or any(x["cuda_initialized"] for x in reports)):
+            raise AssertionError(f"[38] {name}: {r}, moved {moved}, runners "
+                                 f"{reports}")
+        out[name] = wall
+    allocs1 = card_allocations()
+    log(f"[38] allocations on the card during ES and ARS: "
+        f"{allocs1 - allocs0}")
+    if allocs1 != allocs0:
+        raise AssertionError(f"[38] ES/ARS allocated on the card: "
+                             f"{allocs1 - allocs0} allocations")
+    return out
+
+
 def phase_rl(card):
-    """Phases 32-35, in the session of phases 30-31, with this process's
-    K1-K3 counts set to 0 before them: RLlib's path launches none."""
+    """Phases 32-38, in the session of phases 30-31, with this process's
+    K1-K3 counts set to 0 before each group: RLlib's path launches none."""
     reset_counts()
     t0 = time.perf_counter()
     out = {"ppo": phase_rl_ppo(card)}
@@ -4202,6 +4805,20 @@ def phase_rl(card):
         f"K1/K2/K3 launches in this process: {counts()}; {card}")
     if counts() != (0, 0, 0):
         raise AssertionError(f"[34-35] RLlib's path launched {counts()}")
+    reset_counts()
+    t6 = time.perf_counter()
+    out["dreamer"] = phase_rl_dreamer(card)
+    t7 = time.perf_counter()
+    out["multi_az"] = phase_rl_multi_az(card)
+    t8 = time.perf_counter()
+    out["bandit_es"] = phase_rl_bandit_es(card)
+    t9 = time.perf_counter()
+    log(f"[36-38] phase 36 {t7 - t6:.2f} s")
+    log(f"[36-38] phase 37 {t8 - t7:.2f} s")
+    log(f"[36-38] phase 38 {t9 - t8:.2f} s; K1/K2/K3 launches in this "
+        f"process: {counts()}; {card}")
+    if counts() != (0, 0, 0):
+        raise AssertionError(f"[36-38] RLlib's path launched {counts()}")
     return out
 
 

@@ -156,7 +156,12 @@ class MLPModule:
 def rl_params_from_jax(tree: Any) -> Any:
     """An RL module's params from the JAX package (nested dicts and lists
     of numpy arrays, ``jax.tree.map(np.asarray, params)`` done by the
-    caller) as CPU tensors in the same layout."""
+    caller) as CPU tensors in the same layout. Every family's trees keep
+    the JAX package's keys and shapes, so this carries them all: ES's and
+    ARS's flat theta and ARS's filter, the bandits' ``A`` and ``b``, QMIX's
+    agent net and hypernetworks, MADDPG's agent-stacked actors and critics
+    and their targets, AlphaZero's module, and DreamerV3's towers, GRU and
+    slow critic."""
     if isinstance(tree, dict):
         return {k: rl_params_from_jax(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

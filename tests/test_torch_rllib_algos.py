@@ -201,18 +201,25 @@ RLLIB_MODULES = [
     "ray_tpu_torch.rllib.algorithms.algorithm",
     "ray_tpu_torch.rllib.algorithms.algorithm_config",
     "ray_tpu_torch.rllib.algorithms.a2c.a2c",
+    "ray_tpu_torch.rllib.algorithms.alpha_zero.alpha_zero",
     "ray_tpu_torch.rllib.algorithms.apex.apex",
     "ray_tpu_torch.rllib.algorithms.appo.appo",
+    "ray_tpu_torch.rllib.algorithms.ars.ars",
+    "ray_tpu_torch.rllib.algorithms.bandit.bandit",
     "ray_tpu_torch.rllib.algorithms.bc.bc",
     "ray_tpu_torch.rllib.algorithms.cql.cql",
     "ray_tpu_torch.rllib.algorithms.crr.crr",
     "ray_tpu_torch.rllib.algorithms.ddpg.ddpg",
     "ray_tpu_torch.rllib.algorithms.ddppo.ddppo",
     "ray_tpu_torch.rllib.algorithms.dqn.dqn",
+    "ray_tpu_torch.rllib.algorithms.dreamerv3.dreamerv3",
+    "ray_tpu_torch.rllib.algorithms.es.es",
     "ray_tpu_torch.rllib.algorithms.impala.impala",
+    "ray_tpu_torch.rllib.algorithms.maddpg.maddpg",
     "ray_tpu_torch.rllib.algorithms.marwil.marwil",
     "ray_tpu_torch.rllib.algorithms.ppo.multi_agent",
     "ray_tpu_torch.rllib.algorithms.ppo.ppo",
+    "ray_tpu_torch.rllib.algorithms.qmix.qmix",
     "ray_tpu_torch.rllib.algorithms.r2d2.r2d2",
     "ray_tpu_torch.rllib.algorithms.sac.sac",
     "ray_tpu_torch.rllib.connectors.connector",
@@ -251,38 +258,25 @@ def test_rllib_imports_no_jax_no_ray_tpu_no_gymnasium():
     assert res.returncode == 0, res.stderr
 
 
-def test_the_algorithms_still_to_port_raise():
-    """Every name of the reference's ``ray_tpu.rllib.__all__`` is exported
-    by the port, or raises a ``NotImplementedError`` that names ROADMAP
-    Queue 1 item 4 (none is silently absent)."""
+def test_every_reference_algorithm_is_exported():
+    """The port's ``__all__`` is the reference's ``ray_tpu.rllib.__all__``,
+    name for name; every name resolves to the port's own object (none
+    raises), and an unknown name raises ``AttributeError``."""
     tree = ast.parse((REPO / "ray_tpu" / "rllib" / "__init__.py")
                      .read_text())
     ref_all = next(ast.literal_eval(n.value) for n in tree.body
                    if isinstance(n, ast.Assign)
                    and n.targets[0].id == "__all__")
-    ported = set(rllib.__all__)
-    assert {"Algorithm", "AlgorithmConfig", "PPO", "PPOConfig",
-            "MultiAgentPPO", "A2C", "DDPPO", "IMPALA", "APPO",
-            "SingleAgentEnvRunner", "MultiAgentEnv", "MultiAgentEnvRunner",
-            "PolicyClient", "PolicyServerInput", "DQN", "DQNConfig",
-            "ApexDQN", "ApexDQNConfig", "R2D2", "R2D2Config", "SAC",
-            "SACConfig", "DDPG", "DDPGConfig", "TD3", "TD3Config", "CQL",
-            "CQLConfig", "BC", "BCConfig", "MARWIL", "MARWILConfig", "CRR",
-            "CRRConfig"} <= ported
-    assert ported <= set(ref_all)
-    for name in ported:
-        assert getattr(rllib, name) is not None
-    missing = [n for n in ref_all if n not in ported]
-    # the seven families left: ES, ARS, the bandits, MADDPG, QMIX,
-    # AlphaZero and DreamerV3
-    assert sorted(missing) == sorted(rllib.NOT_PORTED) == sorted([
-        "ES", "ESConfig", "ARS", "ARSConfig", "BanditLinUCB",
-        "BanditLinUCBConfig", "BanditLinTS", "BanditLinTSConfig", "MADDPG",
-        "MADDPGConfig", "QMIX", "QMIXConfig", "AlphaZero",
-        "AlphaZeroConfig", "DreamerV3", "DreamerV3Config"])
-    for name in missing:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1, item 4"):
-            getattr(rllib, name)
+    assert sorted(rllib.__all__) == sorted(ref_all)
+    assert len(set(rllib.__all__)) == len(rllib.__all__)
+    for name in rllib.__all__:
+        obj = getattr(rllib, name)
+        assert obj.__module__.startswith("ray_tpu_torch."), name
+    # the seven families of the last slice among them
+    for name in ("ES", "ARS", "BanditLinUCB", "BanditLinTS", "QMIX",
+                 "MADDPG", "AlphaZero", "DreamerV3"):
+        cfg = getattr(rllib, name + "Config")()
+        assert cfg.algo_class is getattr(rllib, name)
+    assert not hasattr(rllib, "NOT_PORTED")
     with pytest.raises(AttributeError):
         rllib.NoSuchAlgorithm
