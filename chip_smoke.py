@@ -112,8 +112,27 @@ Phases, in order; any failure raises and the exit code is not 0:
     checkpoint>, ParamsPredictor).predict(ds, num_gpus=1, concurrency=1)``
     over phase 19's 4 prompts: the 7B with the checkpoint's adapters in a
     GPU actor, its logits equal to phase 19's ``ParamsPredictor`` in the
-    driver, its K1 launches counted in the actor (32). Then the session's
-    shutdown checks cover phases 21, 22 and 27-29's processes.
+    driver, its K1 launches counted in the actor (32).
+40. (The same session.) The compiled DAG over two GPU actor stages of the
+    generator's Llama-2-7B (full width and depth, bf16, LoRA off), each
+    ``num_gpus=0.5`` and drawing the base from seed 0 in its constructor,
+    keeping its half: stage A the embedding and layers 0-15, stage B
+    layers 16-31, the final norm and ``lm_head`` (the last position's fp32
+    logits, as numpy), then a CPU function node's argmax (numpy: its
+    process never imports torch); ``InputNode`` -> A -> B ->
+    argmax through ``experimental_compile()``, the residual stream ([4,
+    128, 4096] bf16, 4 MiB) crossing a channel between the stages. 8
+    executions over phase 19's 4 prompts x 128 tokens, then one
+    uncompiled (``dag.execute``): the logits bit-equal to the driver's
+    ``llama_forward`` each time, K1 = 16 a call in each stage (counted in
+    the stage), the stages two processes apart from the driver on one
+    ``CUDA_VISIBLE_DEVICES``, their memory back after the teardown. Then
+    ``util.client.serve`` in the driver and ``init(address="ray://...")``:
+    a ``num_gpus=1`` task through the client runs ``attention`` at the
+    serving shape on seeded inputs, bit-equal to the driver's call, K1 = 1.
+    Prints ms an execution compiled and uncompiled, the first execution's
+    s, the hop from A to B and the card. Then the session's shutdown
+    checks cover phases 21, 22, 27-29 and 40's processes.
 10. Drive the dense training path: ``bench.py``'s second rung (~1.005B
     params: hidden 2048, mlp 5632, 17 layers, 16 heads of 128, fp32
     params, remat "dots", ``adafactor(1e-3)``) at full width and depth,
@@ -2169,17 +2188,346 @@ def phase_batch_predict(gen, card, phase19):
     return L if on_card else 0, pids.pop()
 
 
+DAG_SPLIT = 16        # phase 40: stage A holds the embedding and layers
+#                       [0, 16), stage B layers [16, 32), the norm and head
+DAG_EXECS = 8         # phase 40: the compiled graph's executions
+CLIENT_SEED = 40      # phase 40: the client task's attention inputs
+
+
+def _dag_stage_class():
+    """Phase 40's stage of the Llama, a class made here so that it travels
+    to its actors by value."""
+
+    class LlamaStage:
+        """Layers [lo, hi) of the Llama, with the embedding when lo is 0
+        and the final norm and ``lm_head`` when hi is the last layer. The
+        whole base is drawn on the device from seed 0 as ``LlamaGenerator``
+        draws it, in the constructor (the first execution must not wait on
+        it), and only this stage's part is kept. ``forward`` runs the
+        layers as ``llama_hidden`` does (``_layer`` per layer, no LoRA) and
+        returns the residual stream (on the device; its channel brings it
+        to the host), or the last position's fp32 logits of
+        ``llama_forward``'s product as a numpy array. Each call logs its
+        host times: entry, input on the device, output ready."""
+
+        def __init__(self, cfg, lo, hi, device):
+            import dataclasses
+
+            import torch
+
+            from ray_tpu_torch.models.llama import init_llama
+            from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("a GPU stage sees no card")
+            self.cfg = cfg
+            params = init_llama(
+                dataclasses.replace(cfg, param_dtype=cfg.dtype),
+                torch.Generator(device=self.device).manual_seed(0),
+                self.device)
+            stacked = params.pop("layers")
+            kept = {}
+            for name in list(stacked):  # one leaf at a time: a low peak
+                kept[name] = stacked.pop(name)[lo:hi].clone()
+            self.layers = [{name: w[i] for name, w in kept.items()}
+                           for i in range(hi - lo)]
+            self.embed = params["embed"] if lo == 0 else None
+            last = hi == cfg.num_layers
+            self.final_norm = params["final_norm"] if last else None
+            self.lm_head = params["lm_head"] if last else None
+            del params, stacked
+            self._sync()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            self.k1_at_start = fa.launches
+            self.times = []
+
+        def _sync(self):
+            import torch
+
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        def info(self):
+            import os
+
+            import torch
+
+            return {"pid": os.getpid(),
+                    "cuda_visible_devices": os.environ.get(
+                        "CUDA_VISIBLE_DEVICES"),
+                    "allocated": (torch.cuda.memory_allocated(self.device)
+                                  if self.device.type == "cuda" else 0)}
+
+        def forward(self, x):
+            import time
+
+            import numpy as np
+            import torch
+            import torch.nn.functional as F
+
+            from ray_tpu_torch.models.llama import _layer, _proj, _rms_norm
+
+            cfg = self.cfg
+            t_in = time.time()
+            with torch.no_grad():
+                if self.embed is not None:  # the token ids, [B, S]
+                    tokens = torch.from_numpy(np.array(x)).to(self.device)
+                    h = F.embedding(tokens, self.embed).to(cfg.dtype)
+                else:  # the residual stream, on the host after its channel
+                    h = x.to(self.device)
+                self._sync()
+                t_dev = time.time()
+                B, S = h.shape[:2]
+                positions = torch.arange(S, device=self.device).expand(B, S)
+                for lp in self.layers:
+                    h = _layer(cfg, h, lp, positions, {}, 0.0)
+                if self.lm_head is not None:
+                    h = _rms_norm(h, self.final_norm, cfg.rms_eps)
+                    logits = _proj("bsh,hv->bsv", h,
+                                   self.lm_head.to(cfg.dtype)).float()
+                    # numpy: the CPU node that reads it needs no torch
+                    h = logits[:, -1].cpu().numpy()
+                self._sync()
+            self.times.append((t_in, t_dev, time.time()))
+            return h
+
+        def k1_launches(self):
+            from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+            return fa.launches - self.k1_at_start
+
+        def call_times(self):
+            return list(self.times)
+
+    return LlamaStage
+
+
+def phase_compiled_dag(gen, card, prompts):
+    """Phase 40a (the runtime is up): a compiled DAG of two GPU actor
+    stages of the generator's model at full width and depth, LoRA off.
+    Stage A (``num_gpus=0.5``) holds the embedding and layers 0-15, stage B
+    (``num_gpus=0.5``) layers 16-31, the final norm and ``lm_head``; a CPU
+    function node takes the argmax. ``InputNode`` -> A -> B -> argmax, with
+    B's logits and the argmax both read by the driver
+    (``MultiOutputNode``), is compiled with ``experimental_compile()``: the
+    residual stream, [4, 128, 4096] bf16, crosses a channel between the
+    stages. ``DAG_EXECS`` executions over ``prompts``, then the same graph
+    once uncompiled (``dag.execute``). The logits must be bit-equal to the
+    driver's ``llama_forward`` on the generator's base each time, the
+    argmax their argmax, each stage's K1 launches ``DAG_SPLIT`` a call, the
+    stages two processes apart from the driver on one
+    ``CUDA_VISIBLE_DEVICES``, and the card's memory back after the DAG's
+    teardown and the stages' end. Returns both stages' K1 launches and
+    their pids."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode, MultiOutputNode
+
+    on_card = DEVICE == "cuda"
+    cfg = gen._cfg
+    L = cfg.num_layers
+    with torch.no_grad():
+        want = llama_forward(gen._params,
+                             torch.from_numpy(prompts).to(DEVICE),
+                             cfg)[:, -1].cpu().numpy()
+    want_ids = want.argmax(-1)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    avail_before = _device_available() if on_card else 0
+
+    Stage = ray_tpu_torch.remote(_dag_stage_class())
+    if on_card:
+        Stage = Stage.options(num_gpus=0.5)
+
+    @ray_tpu_torch.remote
+    def argmax(logits):
+        return logits.argmax(-1)  # numpy: this stage never imports torch
+
+    t0 = time.perf_counter()
+    a = Stage.remote(cfg, 0, DAG_SPLIT, DEVICE)
+    b = Stage.remote(cfg, DAG_SPLIT, L, DEVICE)
+    infos = ray_tpu_torch.get([a.info.remote(), b.info.remote()], timeout=600)
+    build_s = time.perf_counter() - t0
+    pids = [i["pid"] for i in infos]
+    cvds = [i["cuda_visible_devices"] for i in infos]
+    with InputNode() as inp:
+        logits = b.forward.bind(a.forward.bind(inp))
+        dag = MultiOutputNode([logits, argmax.bind(logits)])
+
+    def check(tag, out):
+        got, ids = out
+        if got.shape != want.shape or not np.array_equal(got, want):
+            err = (float(np.abs(got - want).max())
+                   if got.shape == want.shape else None)
+            raise AssertionError(f"{tag}: the DAG's logits differ from the "
+                                 f"driver's llama_forward (max|d| {err})")
+        if not np.array_equal(ids, want_ids):
+            raise AssertionError(f"{tag}: argmax {ids} != {want_ids}")
+
+    compiled = dag.experimental_compile()
+    try:
+        ms, submits = [], []
+        for i in range(DAG_EXECS):
+            t = time.perf_counter()
+            submits.append(time.time())
+            out = compiled.execute(prompts).get(timeout=600)
+            ms.append((time.perf_counter() - t) * 1e3)
+            check(f"compiled execution {i}", out)
+    finally:
+        compiled.teardown()
+    compiled_launches = ray_tpu_torch.get(
+        [a.k1_launches.remote(), b.k1_launches.remote()], timeout=120)
+    t = time.perf_counter()
+    submits.append(time.time())
+    out = ray_tpu_torch.get(dag.execute(prompts), timeout=600)
+    eager_ms = (time.perf_counter() - t) * 1e3
+    check("uncompiled execution", out)
+    launches = ray_tpu_torch.get(
+        [a.k1_launches.remote(), b.k1_launches.remote()], timeout=120)
+    times_a, times_b = ray_tpu_torch.get(
+        [a.call_times.remote(), b.call_times.remote()], timeout=120)
+    infos = ray_tpu_torch.get([a.info.remote(), b.info.remote()], timeout=120)
+    ray_tpu_torch.kill(a)
+    ray_tpu_torch.kill(b)
+    # the hop: A's output ready -> B's entry (A's serialization to the host,
+    # the channel's slot, B's read); then B's copy to its card
+    hops = [(tb[0] - ta[2]) * 1e3 for ta, tb in zip(times_a, times_b)]
+    h2d = [(tb[1] - tb[0]) * 1e3 for tb in times_b]
+    stage_ms = [[(t[2] - t[1]) * 1e3 for t in ts] for ts in (times_a,
+                                                              times_b)]
+
+    def split(i):
+        """Execution i's host times from its submission: A's entry, B's
+        output ready (the rest is B -> argmax -> the driver)."""
+        return (f"A entered +{(times_a[i][0] - submits[i]) * 1e3:.1f} ms, "
+                f"B done +{(times_b[i][2] - submits[i]) * 1e3:.1f} ms")
+
+    avail_after = avail_before
+    if on_card:
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            avail_after = _device_available()
+            if avail_before - avail_after <= 512 * 2**20:
+                break
+            time.sleep(0.5)
+    med = statistics.median
+    log(f"[40] compiled DAG, InputNode -> A (embedding, layers 0-"
+        f"{DAG_SPLIT - 1}) -> B (layers {DAG_SPLIT}-{L - 1}, norm, lm_head) "
+        f"-> argmax, {len(prompts)} prompts x {prompts.shape[1]} tokens, "
+        f"{str(cfg.dtype).removeprefix('torch.')}, LoRA off: stages in pids "
+        f"{pids} (driver {os.getpid()}), CUDA_VISIBLE_DEVICES {cvds}, "
+        f"{[i['allocated'] / 2**30 for i in infos]} GiB allocated, "
+        f"{build_s:.2f} s to draw both halves; first execution "
+        f"{ms[0] / 1e3:.3f} s ({split(0)}), then {med(ms[1:]):.2f} ms an "
+        f"execution (min {min(ms[1:]):.2f}, max {max(ms[1:]):.2f}) "
+        f"compiled, {eager_ms:.2f} ms uncompiled ({split(-1)}); stage A "
+        f"{med(stage_ms[0]):.2f} ms, stage B {med(stage_ms[1]):.2f} ms a "
+        f"call (host wall, synced), "
+        f"hop A -> B {med(hops):.2f} ms (min {min(hops):.2f}), B's copy to "
+        f"the card {med(h2d):.2f} ms (medians over {len(hops)} calls); K1 "
+        f"launches by stage {compiled_launches} after the compiled "
+        f"executions, {launches} after the uncompiled one; logits bit-equal "
+        f"to the driver's llama_forward; the card gives "
+        f"{(avail_before - avail_after) / 2**20:.0f} MiB less after the "
+        f"stages' end than before; {card}")
+    per_call = DAG_SPLIT if on_card else 0
+    if compiled_launches != [per_call * DAG_EXECS] * 2 or \
+            launches != [per_call * (DAG_EXECS + 1)] * 2:
+        raise AssertionError(f"stage K1 launches {compiled_launches} / "
+                             f"{launches}, not {per_call} a call")
+    if len(set(pids)) != 2 or os.getpid() in pids:
+        raise AssertionError(f"the stages ran in processes {pids}")
+    if on_card and (cvds[0] is None or cvds[0] != cvds[1]):
+        raise AssertionError(f"the stages see CUDA_VISIBLE_DEVICES {cvds}")
+    if on_card and avail_before - avail_after > 512 * 2**20:
+        raise AssertionError("the stages' memory did not come back")
+    return sum(launches), pids
+
+
+def phase_ray_client(card):
+    """Phase 40b (the runtime is up): ``util.client.serve`` in the driver
+    and ``init(address="ray://...")``; through the client, a ``num_gpus=1``
+    task runs the port's ``attention`` at the serving shape (B=4, H=32,
+    S=128, D=128, bf16, causal) on inputs drawn from ``CLIENT_SEED`` and
+    returns the output, its K1 launches and its pid. The output must be
+    bit-equal to the driver's same call and the launches 1. Returns the
+    task's K1 launches and its pid."""
+    import ray_tpu_torch
+    from ray_tpu_torch.util.client import serve
+
+    on_card = DEVICE == "cuda"
+    B, H, KVH, S, D, causal, dt = SERVE_SHAPE
+    seed = CLIENT_SEED
+
+    def attend(device):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.ops.attention import attention
+        from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+        g = torch.Generator(device=device).manual_seed(seed)
+        q, k, v = (torch.randn(B, S, n, D, generator=g, device=device,
+                               dtype=getattr(torch, dt))
+                   for n in (H, KVH, KVH))
+        before = fa.launches
+        o = attention(q, k, v, causal=causal)
+        if o.device.type == "cuda":
+            torch.cuda.synchronize()
+        return o, fa.launches - before, os.getpid()
+
+    server = serve(host="127.0.0.1", port=0)
+    try:
+        t0 = time.perf_counter()
+        ctx = ray_tpu_torch.init(address=f"ray://127.0.0.1:{server.port}")
+        connect_s = time.perf_counter() - t0
+        try:
+            task = ctx.remote(attend)
+            if on_card:
+                task = task.options(num_gpus=1)
+            t0 = time.perf_counter()
+            got, launches, pid = ctx.get(task.remote(DEVICE), timeout=600)
+            task_s = time.perf_counter() - t0
+        finally:
+            ctx.disconnect()
+    finally:
+        server.stop()
+    want, _, _ = attend(DEVICE)
+    want = want.cpu()
+    log(f"[40] ray:// client on port {server.port}: connected in "
+        f"{connect_s:.3f} s; a num_gpus=1 task (pid {pid}, driver "
+        f"{os.getpid()}) ran attention at B={B} H={H} S={S} D={D} {dt} "
+        f"causal in {task_s:.2f} s from submit to result (the worker's start "
+        f"and the kernel's load included): output {tuple(got.shape)} "
+        f"{got.dtype} on {got.device}, bit-equal to the driver's: "
+        f"{torch.equal(got, want)}; K1 launches in the task {launches}; "
+        f"{card}")
+    if pid == os.getpid():
+        raise AssertionError("the client's task ran in the driver")
+    if got.shape != want.shape or not torch.equal(got, want):
+        raise AssertionError("the client task's attention differs from the "
+                             "driver's")
+    if launches != (1 if on_card else 0):
+        raise AssertionError(f"client task K1 launches {launches} != 1")
+    return launches, pid
+
+
 def _ms_or_none(ms):
     return "not measured" if ms is None else f"{ms:.1f}"
 
 
 def phase_mesh_runtime(gen, card, inproc, phase19):
-    """Phases 21, 22 and the Data phases 27-29 in one session of the port's
-    runtime, then the shutdown checks (every process gone, the phases'
-    workers and actor among them, the card's memory back). Removes phase
-    19's kept checkpoint. Returns the (K1, K2, K3) launches of phase 22,
-    of phase 27's data-fed steps and of phase 28's timed steps, phase 28's
-    figures and phase 29's K1 launches."""
+    """Phases 21, 22, the Data phases 27-29 and phase 40 (the compiled DAG
+    and the ``ray://`` client) in one session of the port's runtime, then
+    the shutdown checks (every process gone, the phases' workers and actors
+    among them, the card's memory back). Removes phase 19's kept
+    checkpoint. Returns the (K1, K2, K3) launches of phase 22, of phase
+    27's data-fed steps and of phase 28's timed steps, phase 28's figures,
+    phase 29's K1 launches and phase 40's (both stages', the client
+    task's)."""
     import shutil
 
     import ray_tpu_torch
@@ -2200,6 +2548,12 @@ def phase_mesh_runtime(gen, card, inproc, phase19):
         tag = "29"
         predict_launches, predict_pid = phase_batch_predict(
             gen, card, phase19)
+        tag = "40"
+        t40 = time.perf_counter()
+        dag_launches, stage_pids = phase_compiled_dag(
+            gen, card, phase19["prompts"])
+        client_launches, client_pid = phase_ray_client(card)
+        log(f"[40] phase 40: {time.perf_counter() - t40:.1f} s; {card}")
     except BaseException:
         _log_tail(session_dir, tag=tag)
         raise
@@ -2207,12 +2561,15 @@ def phase_mesh_runtime(gen, card, inproc, phase19):
         procs = lifecycle.list_registered(session_dir)
         ray_tpu_torch.shutdown()
         shutil.rmtree(phase19["checkpoint"], ignore_errors=True)
-    _check_session_gone("29", session_dir, procs, avail_before, {
+    _check_session_gone("40", session_dir, procs, avail_before, {
         "phase 22 train worker": m["pid"],
         "phase 27 train worker": data_pid,
-        "phase 29 predictor actor": predict_pid})
+        "phase 29 predictor actor": predict_pid,
+        "phase 40 stage A": stage_pids[0], "phase 40 stage B": stage_pids[1],
+        "phase 40 client task worker": client_pid})
     return dict(mesh=launches, trainer_data=data_launches,
-                dense_data=dense_data, batch_predictor=predict_launches)
+                dense_data=dense_data, batch_predictor=predict_launches,
+                compiled_dag=dag_launches, ray_client=client_launches)
 
 
 def phase_grad_check(gen):
@@ -5274,7 +5631,8 @@ def main() -> int:
                      + pipe_launches[0] + trainer_data_launches[0]
                      + dense_data["launches"][0]
                      + session["batch_predictor"] + tune_asha[0]
-                     + tune_pbt[0] + resume_launches[0]),
+                     + tune_pbt[0] + resume_launches[0]
+                     + session["compiled_dag"] + session["ray_client"]),
         "launches_by_path": {"serve": serve_launches,
                              "serve_deployment": deploy_launches,
                              "train": k1_train,
@@ -5291,7 +5649,9 @@ def main() -> int:
                              "batch_predictor": session["batch_predictor"],
                              "tune_asha": tune_asha[0],
                              "tune_pbt": tune_pbt[0],
-                             "cluster_resume": resume_launches[0]},
+                             "cluster_resume": resume_launches[0],
+                             "compiled_dag": session["compiled_dag"],
+                             "ray_client": session["ray_client"]},
         "max_abs_err": max(r["err_o"] for r in records),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],

@@ -14,6 +14,9 @@ copy of. It holds:
   ``ray_tpu`` renamed ``ray_tpu_torch``, ``RAY_TPU_`` renamed
   ``RAY_TPU_TORCH_`` and the original's tracker references left out, so a
   later fix carries across by diff; the ported places differ beyond that;
+- the DAG API (``ray_tpu_torch.dag``: ``bind``, ``experimental_compile``
+  over ``experimental.Channel``) and the ``ray://`` client
+  (``init(address="ray://host:port")`` to a ``util.client.serve`` server);
 - the Serve control plane (``ray_tpu_torch.serve``), whose
   ``serve.llm.build_llama_app`` serves Llama generation from a replica that
   holds a GPU;
@@ -48,7 +51,6 @@ from ray_tpu_torch._private import worker as _worker_mod
 from ray_tpu_torch._private.config import CONFIG
 from ray_tpu_torch._private.ids import ActorID, JobID, NodeID, ObjectID, TaskID
 from ray_tpu_torch._private.node import Node
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch._private.object_ref import ObjectRef
 from ray_tpu_torch._private.streaming import (
     DynamicObjectRefGenerator, ObjectRefGenerator)
@@ -104,7 +106,18 @@ def init(
     """
     global _global_node
     if address and address.startswith("ray://"):
-        raise not_ported("the ray:// client (ray_tpu/util/client/)")
+        # client mode: proxy the API to a remote driver (reference:
+        # client_builder.py ray.init("ray://...") path). Named params ride
+        # along so e.g. namespace reaches the server-side driver.
+        from ray_tpu_torch.util.client import connect as _client_connect
+
+        named = {"num_cpus": num_cpus, "num_tpus": num_tpus,
+                 "num_gpus": num_gpus, "resources": resources,
+                 "object_store_memory": object_store_memory,
+                 "labels": labels, "namespace": namespace}
+        fwd = {k: v for k, v in named.items() if v is not None}
+        fwd.update(_kwargs)
+        return _client_connect(address, **fwd)
     with _init_lock:
         if is_initialized():
             if ignore_reinit_error:

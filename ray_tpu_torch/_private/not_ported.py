@@ -1,8 +1,10 @@
 """The parts of ``ray_tpu``'s runtime that the port has not copied yet.
 
-The port's copy of the runtime holds what the Serve path reaches. Where a
-copied module reaches further through a function-level import, it raises
-the error built here instead, naming the ROADMAP item that ports the rest.
+The port's copy of the runtime holds what its paths reach. Where a copied
+module reaches further through a function-level import, it raises the
+error built here instead: the conda and container runtime envs (the agent's
+worker setup) and the autoscaler (``cluster_utils``), which ROADMAP Queue 1
+lists among the modules still to port.
 """
 
 from __future__ import annotations

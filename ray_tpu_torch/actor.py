@@ -16,7 +16,6 @@ from typing import Any, Dict, Optional
 from ray_tpu_torch._private import worker as worker_mod
 from ray_tpu_torch._private.config import CONFIG
 from ray_tpu_torch._private.ids import ActorID
-from ray_tpu_torch._private.not_ported import not_ported
 from ray_tpu_torch.remote_function import (
     _resources_from_options, validate_options, _resolve_pg,
     _resolve_pg_bundle_index)
@@ -33,7 +32,9 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG node on an actor method (reference: dag ClassMethodNode)."""
-        raise not_ported("the DAG API (ray_tpu/dag.py)")
+        from ray_tpu_torch.dag import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs)
 
     def options(self, **opts):
         parent = self
@@ -43,7 +44,10 @@ class ActorMethod:
                 return parent._remote(args, kwargs, opts)
 
             def bind(self, *args, **kwargs):
-                raise not_ported("the DAG API (ray_tpu/dag.py)")
+                from ray_tpu_torch.dag import ClassMethodNode
+
+                return ClassMethodNode(parent._handle, parent._method_name,
+                                       args, kwargs, opts)
 
         return _Wrapped()
 

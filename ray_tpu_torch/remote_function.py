@@ -13,7 +13,6 @@ import functools
 from typing import Any, Dict, Optional
 
 from ray_tpu_torch._private import worker as worker_mod
-from ray_tpu_torch._private.not_ported import not_ported
 
 _VALID_OPTIONS = {
     "num_cpus", "num_gpus", "num_tpus", "resources", "num_returns",
@@ -92,7 +91,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG node (reference: dag/dag_node.py bind)."""
-        raise not_ported("the DAG API (ray_tpu/dag.py)")
+        from ray_tpu_torch.dag import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def options(self, **options):
         validate_options(options)
@@ -107,7 +108,10 @@ class RemoteFunction:
                 return parent._map(iterables, merged)
 
             def bind(self, *args, **kwargs):
-                raise not_ported("the DAG API (ray_tpu/dag.py)")
+                from ray_tpu_torch.dag import FunctionNode
+
+                # self.remote already applies the merged options
+                return FunctionNode(self, args, kwargs)
 
             def __getattr__(self, item):
                 return getattr(parent, item)

@@ -415,14 +415,18 @@ def test_usage_stats_report_torch_only_where_loaded(tmp_path):
 
 
 def test_left_out_modules_raise_not_implemented(port_cluster):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ray_tpu_torch.init("ray://localhost:10001")
+    """What the copy still leaves out fails with the error that names its
+    ROADMAP item: a lease that asks for a conda runtime env. The DAG API
+    is ported: ``bind`` builds a node."""
+    from ray_tpu_torch.dag import FunctionNode
+    from ray_tpu_torch.runtime_env import RuntimeEnvSetupError
 
-    @ray_tpu_torch.remote
+    @ray_tpu_torch.remote(runtime_env={"conda": {"dependencies": ["pip"]}})
     def f():
         return 1
 
-    with pytest.raises(NotImplementedError, match="DAG"):
-        f.bind()
+    with pytest.raises(RuntimeEnvSetupError, match="ROADMAP Queue 1"):
+        ray_tpu_torch.get(f.remote(), timeout=60)
+    assert isinstance(f.bind(), FunctionNode)
     assert 'Queue 1, "The runtime modules left out of the copy"' in str(
         not_ported("x"))

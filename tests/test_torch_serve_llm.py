@@ -184,8 +184,10 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     """Every module of the package, the runtime's, Data's and Tune's copies,
     RLlib's rollout and algorithm layers and its on-policy, off-policy
     and offline families, the sharded checkpoints, the framework trainers,
-    ``cluster_utils`` and ``util``'s state, chaos, actor pool, queue and
-    check_serialize included, imports neither jax
+    ``cluster_utils``, ``util``'s state, chaos, actor pool, queue and
+    check_serialize, the DAG API and its channel, and the rest of ``util``
+    (accelerators, tracing, multiprocessing, joblib, iter, dask, rpdb, the
+    ``ray://`` client) included, imports neither jax
     nor ``ray_tpu``; no import statement names them, and no string is a jax
     or ``ray_tpu`` module path (``python -m ...``)."""
     code = (
@@ -228,7 +230,20 @@ def test_package_imports_no_jax_and_no_ray_tpu():
         "        'ray_tpu_torch.cluster_utils',\n"
         "        'ray_tpu_torch.util.actor_pool', 'ray_tpu_torch.util.queue',\n"
         "        'ray_tpu_torch.util.check_serialize',\n"
-        "        'ray_tpu_torch.util.state', 'ray_tpu_torch.util.chaos'} <= "
+        "        'ray_tpu_torch.util.state', 'ray_tpu_torch.util.chaos',\n"
+        "        'ray_tpu_torch.dag', 'ray_tpu_torch.experimental.channel',\n"
+        "        'ray_tpu_torch.util.accelerators',\n"
+        "        'ray_tpu_torch.util.accelerators.tpu',\n"
+        "        'ray_tpu_torch.util.tracing',\n"
+        "        'ray_tpu_torch.util.tracing.tracing_helper',\n"
+        "        'ray_tpu_torch.util.multiprocessing',\n"
+        "        'ray_tpu_torch.util.multiprocessing.pool',\n"
+        "        'ray_tpu_torch.util.joblib',\n"
+        "        'ray_tpu_torch.util.joblib.ray_backend',\n"
+        "        'ray_tpu_torch.util.iter', 'ray_tpu_torch.util.dask',\n"
+        "        'ray_tpu_torch.util.rpdb', 'ray_tpu_torch.util.client',\n"
+        "        'ray_tpu_torch.util.client.client',\n"
+        "        'ray_tpu_torch.util.client.server'} <= "
         "set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
