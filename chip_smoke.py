@@ -50,6 +50,39 @@ Phases, in order; any failure raises and the exit code is not 0:
     session's directory removed. A K1 build failure in the replica fails
     its constructor, the deployment and the phase; the session's logs are
     printed when the phase fails.
+41. (In phase 18's session, the probed app RUNNING, before Serve shuts
+    down.) The operator's path: ``dashboard.start_dashboard(port=0)``, whose
+    ``/healthz``, ``/api/cluster_status`` (1 GPU in total, 0 available),
+    ``/api/serve/applications`` (the app RUNNING), ``/metrics`` (GPU in
+    use 1) and ``/grafana/dashboards`` (core and GPU) must answer; a job
+    submitted through ``JobSubmissionClient`` whose entrypoint
+    (``sys.executable`` and a small script, the package on ``PYTHONPATH``
+    through the job's ``runtime_env``) joins with
+    ``init(address=os.environ["RAY_TPU_TORCH_ADDRESS"], num_gpus=0)``,
+    streams phase 4's 6 requests through ``serve.get_app_handle`` one at a
+    time and prints their tokens as one JSON line. The driver polls ``GET
+    /api/jobs/<id>`` to SUCCEEDED and reads ``GET /api/jobs/<id>/logs``:
+    the tokens must equal phase 18's in-process streams at B=1, and the
+    replica's K1 launches (its ``probe()`` before and after) must grow by
+    exactly 32 x its forward steps for them. Then the CLI in this driver
+    (``cli.main``): ``status`` shows ``1/1 GPU``, ``serve status`` the app
+    RUNNING, ``list actors`` the replica, the job's supervisor and the
+    dashboard; ``summary tasks`` and ``memory`` exit 0. Phase 18's
+    shutdown checks then cover the supervisor's and the dashboard's
+    processes. A job that fails, a route that errors or a command that
+    exits non-zero fails the phase.
+42. (After phase 18's session is gone.) ``python -m
+    ray_tpu_torch.scripts.cli start --head --num-cpus 2`` in a process of
+    its own; a driver joins at the printed address (declaring no GPU) and
+    its ``cli status`` must show ``0/1 GPU``: the CLI's node found the card.
+    ``workflow.run`` of a two-step DAG: a ``num_gpus=1`` step runs
+    ``attention`` at the serving shape on inputs drawn from a seed (K1 = 1
+    in its worker, which it reports back) and returns the output on the
+    card; a CPU step reduces it (fp64 row sums). The output, a CPU tensor,
+    must be bit-equal to the driver's own call; ``workflow.resume`` of the
+    same id returns the stored result, reruns no step and so launches no
+    K1. Then ``cli stop``: no session of the port may be live, the step's
+    worker gone and the card's memory back.
 7. Drive the training path: the Llama-2-7B LoRA fine-tune step
    (``create_train_state`` + ``make_train_step``, rank 16 on all seven
    projections, ``adamw(1e-4)``, remat "full", ``loss_chunk=256``) at full
@@ -187,8 +220,8 @@ Phases, in order; any failure raises and the exit code is not 0:
     Llama-2-7B widths, **depth cut 32 -> 4** (each trial draws its own
     frozen base). ``Tuner(TorchTrainer(loop, ScalingConfig(num_workers=1,
     use_gpu=True)))`` sweeps ``train_loop_config.lr`` over
-    ``grid_search([3e-3, 1e-3, 3e-4])`` (the largest first, so that a
-    later trial can fall behind an earlier one; 3 trials, not 4, for the
+    ``grid_search([3e-3, 1e-3])`` (the largest first, so that a later
+    trial can fall behind an earlier one; 2 trials, not 4, for the
     script's time) with ``ASHAScheduler(max_t=4, grace_period=1,
     reduction_factor=2)``, one trial at a time; each trial's GPU worker loads phase 2's kernels and
     reports loss, grad norm and its K1-K3 launches every step. Every
@@ -251,8 +284,8 @@ Phases, in order; any failure raises and the exit code is not 0:
 36. (The same session.) DreamerV3 at the reference's defaults (deter 128,
     8 x 8 latents, hidden 128, horizon 10, batch 8 x 16, train_ratio 64)
     with the learner on the card and 1 CPU env runner of 4 numpy
-    ``_Chain``s (the reference tests' corridor), 16 steps a fragment, 3
-    iterations (32 updates in each of the last two): every update timed
+    ``_Chain``s (the reference tests' corridor), 16 steps a fragment, 2
+    iterations (32 updates in the second): every update timed
     with CUDA events (median, min, max), one profiled for its kernel
     launches and device time; the first update replayed on a CPU
     ``DreamerLearner`` from the card's state with its batch and Gumbel
@@ -297,7 +330,9 @@ Phases, in order; any failure raises and the exit code is not 0:
     checkpoint's bytes, save and load seconds, each fit's first report and
     the phase's seconds.
 
-It prints one JSON line of per-kernel numbers, then, as its last line,
+It prints each phase's seconds on a line of its own (``[t] phase 18, 41:
+... s``; a label names every phase one call of ``main`` runs), one JSON
+line of per-kernel numbers, then, as its last line,
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the package
 beside it, it fails before printing any result.
 """
@@ -1058,7 +1093,7 @@ def _check_session_gone(tag, session_dir, procs, avail_before, workers):
         raise AssertionError(f"session {session_dir} outlived the shutdown")
 
 
-def phase_serve_deployment(gen, inproc):
+def phase_serve_deployment(gen, inproc, card):
     """Serve 7B through the port's runtime: ``ray_tpu_torch.init`` (the GPU
     detected), ``serve.run(build_llama_app(...))`` with a replica that holds
     the card; phase 4's 6 requests one at a time, token for token against
@@ -1216,19 +1251,375 @@ def phase_serve_deployment(gen, inproc):
         log(f"[18] a {DEVICE} tensor (4 MiB) went to a task and back as the "
             f"same CPU tensor")
         replica_launches = pr["launches"]
+        job_launches, operator_pids, job = phase_operator(
+            handle, "probed", prompts, adapters, max_new, want, card)
     except BaseException:
-        _log_tail(session_dir)
+        _log_tail(session_dir, tag="18/41")
         raise
     finally:
         # every process the session started: head, agent, forkserver,
-        # workers (both replicas among them)
+        # workers (both replicas, the job's supervisor and the dashboard
+        # among them)
         procs = lifecycle.list_registered(session_dir)
         serve.shutdown()
         ray_tpu_torch.shutdown()
 
     _check_session_gone("18", session_dir, procs, avail_before,
-                        {"replica": pr["pid"]})
-    return replica_launches, figures
+                        {"replica": pr["pid"], **operator_pids})
+    return replica_launches, figures, dict(job, launches=job_launches)
+
+
+# phase 41: the job's entrypoint. It joins the job's cluster (a bare
+# ``init()`` would start a cluster of its own) as a node that declares no
+# GPU, streams each request through the app's handle alone and prints the
+# tokens as one JSON line, and whether torch came into its process.
+JOB_ENTRYPOINT = r"""
+import json, os, sys, time
+import ray_tpu_torch
+from ray_tpu_torch import serve
+
+t0 = time.perf_counter()
+ray_tpu_torch.init(address=os.environ["RAY_TPU_TORCH_ADDRESS"], num_gpus=0)
+joined = time.perf_counter() - t0
+spec = json.loads(os.environ["CHIP_SMOKE_JOB"])
+handle = serve.get_app_handle(spec["app"])
+tokens = [list(handle.options(stream=True, multiplexed_model_id=a).remote(
+    {"prompt": p, "max_new": spec["max_new"]}))
+    for p, a in zip(spec["prompts"], spec["adapters"])]
+print("JOB " + json.dumps({"tokens": tokens, "torch": "torch" in sys.modules,
+                           "pid": os.getpid(), "joined_s": joined,
+                           "s": time.perf_counter() - t0}), flush=True)
+ray_tpu_torch.shutdown()
+"""
+
+
+def _http(port, path):
+    """GET ``path`` from the dashboard: (status, body). A route that answers
+    an error raises."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return r.status, r.read()
+
+
+def _cli_out(argv):
+    """``ray_tpu_torch.scripts.cli.main(argv)`` in this (joined) driver, its
+    standard output captured. A command that exits non-zero raises."""
+    import contextlib
+    import io
+
+    from ray_tpu_torch.scripts import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    if code != 0:
+        raise AssertionError(f"cli {argv} exited {code}:\n{buf.getvalue()}")
+    return buf.getvalue()
+
+
+def phase_operator(handle, app, prompts, adapters, max_new, want, card):
+    """Phase 41 (in phase 18's session, the probed 7B app RUNNING): the
+    dashboard's routes, a job whose entrypoint streams phase 4's requests
+    through the app's handle from a process of its own, and the CLI in this
+    driver. Returns the replica's K1 launches for the job's requests, the
+    supervisor's and the dashboard's pids and the figures."""
+    import shlex
+
+    import ray_tpu_torch
+    from ray_tpu_torch.dashboard import start_dashboard
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    on_card = DEVICE == "cuda"
+    t41 = time.perf_counter()
+    port = start_dashboard(port=0)
+    dash_s = time.perf_counter() - t41
+    if _http(port, "/healthz")[1] != b"success":
+        raise AssertionError("/healthz")
+    cluster = json.loads(_http(port, "/api/cluster_status")[1])
+    gpus = (cluster["total"].get("GPU", 0), cluster["available"].get("GPU", 0))
+    if on_card and gpus != (1, 0):
+        raise AssertionError(f"/api/cluster_status GPU (total, available) "
+                             f"{gpus} != (1, 0)")
+    apps = json.loads(_http(port, "/api/serve/applications")[1])
+    if apps["applications"].get(app, {}).get("status") != "RUNNING":
+        raise AssertionError(f"/api/serve/applications: {apps}")
+    # what /api/cluster_status says is leased (1 on the card) must be what
+    # the agent's gauge exports
+    leased = gpus[0] - gpus[1]
+    in_use, deadline = None, time.monotonic() + 30
+    while time.monotonic() < deadline:
+        text = _http(port, "/metrics")[1].decode()
+        vals = [float(m.group(2)) for m in re.finditer(
+            r"^ray_tpu_resource_in_use\{([^}]*)\}\s+(\S+)$", text, re.M)
+            if 'resource="GPU"' in m.group(1)]
+        if vals:
+            in_use = sum(vals)
+            if in_use == leased:
+                break
+        time.sleep(0.5)
+    if in_use != leased:
+        raise AssertionError(f"/metrics GPU in use {in_use}")
+    dashboards = json.loads(_http(port, "/grafana/dashboards")[1])
+    uids = sorted(d["uid"] for d in dashboards["dashboards"])
+    if uids != ["raytpu-core", "raytpu-gpu"]:
+        raise AssertionError(f"/grafana/dashboards: {uids}")
+    log(f"[41] dashboard on port {port} up in {dash_s:.2f} s: /healthz "
+        f"success; /api/cluster_status GPU (total, available) {gpus}; "
+        f"/api/serve/applications {app} RUNNING; /metrics GPU in use "
+        f"{in_use:g}; /grafana/dashboards {uids}")
+
+    before = handle.probe.remote().result(timeout_s=60)
+    pkg_root = os.path.dirname(os.path.dirname(
+        os.path.abspath(ray_tpu_torch.__file__)))
+    spec = {"app": app, "prompts": prompts, "adapters": adapters,
+            "max_new": max_new}
+    client = JobSubmissionClient()
+    t0 = time.perf_counter()
+    job_id = client.submit_job(
+        entrypoint=f"{shlex.quote(sys.executable)} -c "
+                   f"{shlex.quote(JOB_ENTRYPOINT)}",
+        runtime_env={"env_vars": {
+            "PYTHONPATH": os.pathsep.join(
+                [pkg_root] + [p for p in os.environ.get(
+                    "PYTHONPATH", "").split(os.pathsep) if p]),
+            "CHIP_SMOKE_JOB": json.dumps(spec)}})
+    status, deadline = None, time.monotonic() + 300
+    while time.monotonic() < deadline:
+        status = json.loads(_http(port, f"/api/jobs/{job_id}")[1])["status"]
+        if status in ("SUCCEEDED", "FAILED", "STOPPED"):
+            break
+        time.sleep(0.25)
+    job_s = time.perf_counter() - t0
+    logs = json.loads(_http(port, f"/api/jobs/{job_id}/logs")[1])["logs"]
+    if status != "SUCCEEDED":
+        raise AssertionError(f"job {job_id} {status}; its log:\n{logs}")
+    lines = [x for x in logs.splitlines() if x.startswith("JOB ")]
+    if len(lines) != 1:
+        raise AssertionError(f"job {job_id} printed no JOB line:\n{logs}")
+    out = json.loads(lines[0][4:])
+    after = handle.probe.remote().result(timeout_s=60)
+    steps = after["steps"] - before["steps"]
+    launches = after["launches"] - before["launches"]
+    for i, (g, w) in enumerate(zip(out["tokens"], want)):
+        if g != w:
+            raise AssertionError(
+                f"job request {i} ({adapters[i] or 'base'}): {g} against "
+                f"the in-process generator's {w}")
+    if len(out["tokens"]) != len(want):
+        raise AssertionError(f"job streamed {len(out['tokens'])} requests")
+    log(f"[41] job {job_id} SUCCEEDED in {job_s:.2f} s from submit (its "
+        f"driver pid {out['pid']}, joined in {out['joined_s']:.2f} s, "
+        f"streamed in {out['s']:.2f} s; torch imported in the job's "
+        f"process: {out['torch']}): 6 streams equal, token for token, to "
+        f"phase 18's in-process streams at B=1; the replica's K1 launches "
+        f"{before['launches']} -> {after['launches']}, {launches} = "
+        f"{after['layers']} x {steps} steps; {card}")
+    if on_card and (steps <= 0 or launches != after["layers"] * steps):
+        raise AssertionError(f"the replica's K1 grew by {launches}, not "
+                             f"{after['layers']} x {steps}")
+    if not on_card and launches != 0:
+        raise AssertionError(f"K1 launches {launches} on the CPU")
+
+    t0 = time.perf_counter()
+    status_out = _cli_out(["status"])
+    if on_card and "  1/1 GPU" not in status_out:
+        raise AssertionError(f"cli status:\n{status_out}")
+    serve_out = json.loads(_cli_out(["serve", "status"]))
+    if serve_out["applications"].get(app, {}).get("status") != "RUNNING":
+        raise AssertionError(f"cli serve status: {serve_out}")
+    actors = json.loads(_cli_out(["list", "actors"]))
+    sup = [a for a in actors if a.get("name") == f"_job_supervisor_{job_id}"]
+    dash = [a for a in actors if a.get("class_name") == "DashboardActor"]
+    if not sup or not dash or not any(
+            a.get("pid") == after["pid"] for a in actors):
+        raise AssertionError(f"cli list actors names no replica, supervisor "
+                             f"or dashboard: {actors}")
+    json.loads(_cli_out(["summary", "tasks"]))
+    mem = _cli_out(["memory"])
+    gpu_line = next((x.strip() for x in status_out.splitlines()
+                     if x.strip().endswith(" GPU")), "no GPU line")
+    log(f"[41] cli in this driver ({time.perf_counter() - t0:.2f} s): "
+        f"status {gpu_line!r}; serve status {app} RUNNING; list actors: "
+        f"the replica (pid {after['pid']}), the supervisor (pid "
+        f"{sup[0]['pid']}), the dashboard (pid {dash[0]['pid']}) among "
+        f"{len(actors)}; summary tasks and memory exit 0 "
+        f"({mem.splitlines()[0] if mem else ''}); phase 41 "
+        f"{time.perf_counter() - t41:.1f} s; {card}")
+    figures = {"job_s": job_s, "joined_s": out["joined_s"],
+               "stream_s": out["s"], "job_torch": out["torch"],
+               "steps": steps, "phase_s": time.perf_counter() - t41}
+    return (launches if on_card else 0,
+            {"job supervisor": sup[0]["pid"], "dashboard": dash[0]["pid"]},
+            figures)
+
+
+WORKFLOW_SEED = 42    # phase 42: the GPU step's attention inputs
+
+
+def phase_cli_workflow(card):
+    """Phase 42 (after phase 18's session is gone): ``python -m
+    ray_tpu_torch.scripts.cli start --head --num-cpus 2`` in a process of its
+    own, whose node must find the card; a driver joins at the printed
+    address (declaring no GPU) and its ``cli status`` shows ``0/1 GPU``.
+    ``workflow.run`` of a two-step DAG: a ``num_gpus=1`` step runs the port's
+    ``attention`` at the serving shape (B=4, H=32, S=128, D=128, bf16,
+    causal) on inputs drawn from ``WORKFLOW_SEED`` and returns the output on
+    the card and its K1 launches; a CPU step reduces it (fp64 row sums) and
+    passes it on. The output, a CPU tensor, must be bit-equal to the
+    driver's own call, K1 = 1 in the GPU step's worker; ``workflow.resume``
+    of the same id returns the stored result and runs no step (so launches
+    no K1). Then ``cli stop``: no session of the port is live and the card's
+    memory is back. Returns the GPU step's K1 launches and the figures."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch._private import lifecycle
+
+    on_card = DEVICE == "cuda"
+    B, H, KVH, S, D, causal, dt = SERVE_SHAPE
+    seed = WORKFLOW_SEED
+    avail_before = _device_available() if on_card else 0
+    pkg_root = os.path.dirname(os.path.dirname(
+        os.path.abspath(ray_tpu_torch.__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [pkg_root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_wf_")
+
+    def cli_proc(*argv):
+        r = subprocess.run(
+            [sys.executable, "-m", "ray_tpu_torch.scripts.cli", *argv],
+            capture_output=True, text=True, timeout=180, env=env,
+            cwd=pkg_root)
+        if r.returncode != 0:
+            raise AssertionError(f"cli {argv} exited {r.returncode}:\n"
+                                 f"{r.stdout}{r.stderr}")
+        return r.stdout
+
+    def attend(device, seed):
+        import os
+
+        import torch
+
+        from ray_tpu_torch.ops.attention import attention
+        from ray_tpu_torch.ops.cuda import flash_attention as fa
+
+        g = torch.Generator(device=device).manual_seed(seed)
+        q, k, v = (torch.randn(B, S, n, D, generator=g, device=device,
+                               dtype=getattr(torch, dt))
+                   for n in (H, KVH, KVH))
+        before = fa.launches
+        o = attention(q, k, v, causal=causal)
+        if o.device.type == "cuda":
+            torch.cuda.synchronize()
+        return o, fa.launches - before, os.getpid()
+
+    def gpu_step(device, seed):
+        open(os.path.join(tmp, "ran"), "a").write("g")
+        o, launches, pid = attend(device, seed)
+        return {"o": o, "k1": launches, "pid": pid,
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+    def cpu_step(r):
+        open(os.path.join(tmp, "ran"), "a").write("c")
+        return dict(r, rowsum=r["o"].double().sum(dim=-1))
+
+    t42 = time.perf_counter()
+    started = cli_proc("start", "--head", "--num-cpus", "2")
+    start_s = time.perf_counter() - t42
+    session_dir = next(x for x in started.splitlines()
+                       if x.startswith("node started")).rsplit(": ", 1)[1]
+    address = next(x for x in started.splitlines()
+                   if x.startswith("head address:")).split(": ", 1)[1]
+    gpu_pid = None
+    try:
+        try:
+            ray_tpu_torch.init(address=address.strip(), num_gpus=0)
+            status_out = _cli_out(["status"])
+            gpu_line = next((x.strip() for x in status_out.splitlines()
+                             if x.strip().endswith(" GPU")), "no GPU line")
+            if on_card and gpu_line != "0/1 GPU":
+                raise AssertionError(f"cli status:\n{status_out}")
+            workflow.init(os.path.join(tmp, "store"))
+            g = ray_tpu_torch.remote(gpu_step)
+            if on_card:
+                g = g.options(num_gpus=1)
+            c = ray_tpu_torch.remote(cpu_step).options(num_cpus=1)
+            dag = c.bind(g.bind(DEVICE, seed))
+            t0 = time.perf_counter()
+            out = workflow.run(dag, workflow_id="chip_smoke_42")
+            run_s = time.perf_counter() - t0
+            gpu_pid = out["pid"]
+            ran = open(os.path.join(tmp, "ran")).read()
+            t0 = time.perf_counter()
+            again = workflow.resume("chip_smoke_42", dag)
+            resume_s = time.perf_counter() - t0
+            ran_after = open(os.path.join(tmp, "ran")).read()
+            wf_status = workflow.get_status("chip_smoke_42")
+        finally:
+            ray_tpu_torch.shutdown()
+    finally:
+        stopped = cli_proc("stop")
+        shutil.rmtree(tmp, ignore_errors=True)
+    want, _, _ = attend(DEVICE, seed)
+    want = want.cpu()
+    equal = (out["o"].device.type == "cpu" and torch.equal(out["o"], want)
+             and torch.equal(out["rowsum"], want.double().sum(dim=-1)))
+    same = all(torch.equal(again[k], out[k]) for k in ("o", "rowsum")) and \
+        again["k1"] == out["k1"]
+    log(f"[42] cli start --head --num-cpus 2: up in {start_s:.2f} s at "
+        f"{address.strip()}; a joined driver's cli status {gpu_line!r}; "
+        f"workflow.run of gpu_step (num_gpus={int(on_card)}, worker pid "
+        f"{out['pid']}, "
+        f"CUDA_VISIBLE_DEVICES={out['visible']}) -> cpu_step in "
+        f"{run_s:.2f} s: output {tuple(out['o'].shape)} {out['o'].dtype} on "
+        f"{out['o'].device}, bit-equal to the driver's call: {equal}; K1 in "
+        f"the step {out['k1']}; steps run {ran!r}; resume in "
+        f"{resume_s:.3f} s returned the stored result ({same}), steps run "
+        f"since {ran_after[len(ran):]!r}, status {wf_status}; "
+        f"cli stop: {stopped.splitlines()[0]}")
+    if not equal:
+        raise AssertionError("the workflow's output differs from the "
+                             "driver's call")
+    if out["k1"] != (1 if on_card else 0):
+        raise AssertionError(f"the GPU step's K1 launches {out['k1']} != 1")
+    if ran != "gc" or ran_after != ran or not same or \
+            wf_status != "SUCCESSFUL":
+        raise AssertionError(f"resume ran steps {ran_after[len(ran):]!r} "
+                             f"or changed the result ({same}, {wf_status})")
+    if gpu_pid == os.getpid():
+        raise AssertionError("the GPU step ran in the driver")
+    def live_sessions():
+        # on the card no other runtime runs: no session of the port may be
+        # live; a rehearsal on a shared CPU checks the head's own
+        return [x["path"] for x in lifecycle.list_sessions() if x["live"]
+                and (on_card or os.path.normpath(x["path"])
+                     == os.path.normpath(session_dir))]
+
+    deadline = time.monotonic() + 60
+    live = live_sessions()
+    while time.monotonic() < deadline and (
+            live or lifecycle._pid_alive(gpu_pid)):
+        time.sleep(0.2)
+        live = live_sessions()
+    avail_after = _device_available() if on_card else 0
+    log(f"[42] after cli stop: live port sessions {live}, the GPU step's "
+        f"worker alive {lifecycle._pid_alive(gpu_pid)}; the card gives "
+        f"{(avail_before - avail_after) / 2**20:.0f} MiB less than before "
+        f"the head started; phase 42 {time.perf_counter() - t42:.1f} s; "
+        f"{card}")
+    if live or lifecycle._pid_alive(gpu_pid):
+        raise AssertionError(f"{session_dir} or the GPU step's worker "
+                             f"outlived cli stop")
+    if on_card and avail_before - avail_after > 512 * 2**20:
+        raise AssertionError("the GPU step's memory did not come back")
+    return out["k1"], {"start_s": start_s, "run_s": run_s,
+                       "resume_s": resume_s,
+                       "phase_s": time.perf_counter() - t42}
 
 
 def train_setup(gen, num_layers=None):
@@ -3560,7 +3951,7 @@ TUNE_LRS = [1e-4, 3e-4, 1e-3, 3e-3]
 # compares each trial with the ones before it, and the loss after one AdamW
 # step falls as lr grows on this grid, so in rising order each trial would
 # beat the ones before it at every rung and none would be stopped
-ASHA_LRS = TUNE_LRS[::-1][:3]  # 3 trials, not 4: a trial takes ~35 s
+ASHA_LRS = TUNE_LRS[::-1][:2]  # 2 trials, not 4: a trial takes ~35 s
 TUNE_MAX_T = 4       # ASHA's max_t: steps of a trial that is not stopped
 PBT_ITERS = 6        # PBT's iterations, one step each
 
@@ -4756,8 +5147,8 @@ class _ContextBandit:
         pass
 
 
-DREAMER_ITERS = 3     # phase 36: 4 sequences an iteration; the buffer
-#                       needs 8, so iterations 2 and 3 run 32 updates each
+DREAMER_ITERS = 2     # phase 36: 4 sequences an iteration; the buffer
+#                       needs 8, so iteration 2 runs 32 updates
 TOL_DREAMER_REL = 1e-4  # one update's metrics, card against CPU: a chain
 #                         of 26 fp32 steps (the CPU test's tolerance)
 QMIX_ITERS, MADDPG_ITERS, AZ_ITERS = 3, 4, 1   # phase 37
@@ -5203,7 +5594,7 @@ def phase_rl(card):
 
 RESUME_STEPS = 4       # phase 39: a fit's steps; the state is saved after 2
 RESUME_SAVE_AT = 2
-TRACE_S = 6.0          # phase 39: the trace's length
+TRACE_S = 3.0          # phase 39: the trace's length
 TRACE_KERNELS = ("flash_fwd_kernel_tc", "flash_dq_kernel_tc",
                  "flash_dkv_kernel_tc")
 
@@ -5551,64 +5942,78 @@ def main() -> int:
         return 1
     resolve_device("cuda")  # fp32 means fp32: TF32 off
     t_start = time.perf_counter()
-    card = phase_machine()
-    phase_build()
-    records = phase_kernels()
-    bwd = phase_bwd_kernels()
-    ring = phase_ring_schedule()
+    phase_s = {}  # phase label -> seconds, printed before the result lines
+
+    def timed(label, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)``, its seconds recorded under ``label``
+        (the phases it runs)."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        phase_s[label] = time.perf_counter() - t0
+        return out
+
+    card = timed("1", phase_machine)
+    timed("2", phase_build)
+    records = timed("3 (K1)", phase_kernels)
+    bwd = timed("3 (K2, K3)", phase_bwd_kernels)
+    ring = timed("20", phase_ring_schedule)
     reset_counts()
-    serve_launches, gen, inproc = phase_main_path()
+    serve_launches, gen, inproc = timed("4", phase_main_path)
     if counts()[1:] != (0, 0):
         raise AssertionError(f"the serving path ran backward kernels: "
                              f"{counts()}")
-    phase_slice_check(gen)
-    phase_profile(gen)
-    deploy_launches, _ = phase_serve_deployment(gen, inproc)
-    train = phase_train(gen)
-    phase_grad_check(gen)
-    train_device_ms = phase_train_profile(train)
+    timed("5", phase_slice_check, gen)
+    timed("6", phase_profile, gen)
+    deploy_launches, _, job = timed("18, 41", phase_serve_deployment, gen,
+                                    inproc, card)
+    workflow_launches, _ = timed("42", phase_cli_workflow, card)
+    train = timed("7", phase_train, gen)
+    timed("8", phase_grad_check, gen)
+    train_device_ms = timed("9", phase_train_profile, train)
     train_launches = train["launches"]
     inproc_train = {k: train[k] for k in ("metrics", "ms_step")}
     del train  # the LoRA state and its step
-    trainer_launches, predictor_launches, phase19 = phase_train_runtime(
-        gen, card, inproc_train)
-    session = phase_mesh_runtime(
-        gen, card, dict(inproc_train, device_ms=train_device_ms), phase19)
+    trainer_launches, predictor_launches, phase19 = timed(
+        "19", phase_train_runtime, gen, card, inproc_train)
+    session = timed(
+        "21-22, 27-29, 40", phase_mesh_runtime, gen, card,
+        dict(inproc_train, device_ms=train_device_ms), phase19)
     mesh_launches = session["mesh"]
     trainer_data_launches = session["trainer_data"]
     dense_data = session["dense_data"]
-    dense = phase_dense()
+    dense = timed("10", phase_dense)
     log(f"[28] data-fed against resident batch, dense 1B B={DENSE_B} "
         f"S={DENSE_S}: {dense_data['tok_s']:.0f} against "
         f"{dense['tok_s']:.0f} tokens/s, MFU {dense_data['mfu']:.1%} against "
         f"{dense['mfu']:.1%}, busy {dense_data['busy']:.1%} (the timed "
         f"window) against {dense['busy']:.1%} (phase 10: a profiled step "
         f"over the timed steps' wall); {card}")
-    phase_dense_grad_check()
-    phase_decode(gen)
-    phase_merge(gen)
+    timed("11", phase_dense_grad_check)
+    timed("12", phase_decode, gen)
+    timed("13", phase_merge, gen)
     del gen  # the 7B base: phase 16 needs the card's memory
     gc.collect()
     torch.cuda.empty_cache()
-    phase_blockwise()
-    phase_mlp()
+    timed("14", phase_blockwise)
+    timed("15", phase_mlp)
     log(f"[16] memory allocated before the MoE phases "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    moe_run = phase_moe()
-    phase_moe_check(moe_run.pop("params"))
+    moe_run = timed("16", phase_moe)
+    timed("17", phase_moe_check, moe_run.pop("params"))
     moe_launches = moe_run["launches"]
     gc.collect()  # phase 16's params: phase 23 draws them anew
     torch.cuda.empty_cache()
-    moe_ep_launches = phase_moe_ep(moe_run["metrics"])
+    moe_ep_launches = timed("23", phase_moe_ep, moe_run["metrics"])
     gc.collect()
     torch.cuda.empty_cache()
-    pipe_launches = phase_pipeline()
+    pipe_launches = timed("24", phase_pipeline)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_ppo()
-    phase_dryrun()
-    tune_asha, tune_pbt, _ = phase_tune(card, in_session=phase_rl)
-    resume_launches = phase_cluster_resume(card)
+    timed("25", phase_ppo)
+    timed("26", phase_dryrun)
+    tune_asha, tune_pbt, _ = timed("30-38", phase_tune, card,
+                                   in_session=phase_rl)
+    resume_launches = timed("39", phase_cluster_resume, card)
 
     # K1 at the serving path's B=4, S=128 (its headline numbers) and at the
     # training paths' B=1 and B=4, S=2048; K2 and K3 at the training shapes
@@ -5632,7 +6037,8 @@ def main() -> int:
                      + dense_data["launches"][0]
                      + session["batch_predictor"] + tune_asha[0]
                      + tune_pbt[0] + resume_launches[0]
-                     + session["compiled_dag"] + session["ray_client"]),
+                     + session["compiled_dag"] + session["ray_client"]
+                     + job["launches"] + workflow_launches),
         "launches_by_path": {"serve": serve_launches,
                              "serve_deployment": deploy_launches,
                              "train": k1_train,
@@ -5651,7 +6057,9 @@ def main() -> int:
                              "tune_pbt": tune_pbt[0],
                              "cluster_resume": resume_launches[0],
                              "compiled_dag": session["compiled_dag"],
-                             "ray_client": session["ray_client"]},
+                             "ray_client": session["ray_client"],
+                             "job": job["launches"],
+                             "workflow": workflow_launches},
         "max_abs_err": max(r["err_o"] for r in records),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -5715,6 +6123,8 @@ def main() -> int:
                  if key in hop[kern]}, shape=hop["shape"],
                 library_ms=hop["library_ms"]),
         })
+    for label, sec in phase_s.items():
+        log(f"[t] phase {label}: {sec:.1f} s")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

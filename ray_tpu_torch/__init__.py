@@ -17,6 +17,11 @@ copy of. It holds:
 - the DAG API (``ray_tpu_torch.dag``: ``bind``, ``experimental_compile``
   over ``experimental.Channel``) and the ``ray://`` client
   (``init(address="ray://host:port")`` to a ``util.client.serve`` server);
+- the operator's surface: job submission (``job_submission``), the
+  dashboard's REST API and Grafana dashboards (``dashboard``), the CLI
+  (``python -m ray_tpu_torch.scripts.cli``), durable workflows over the DAG
+  API (``workflow``), ``experimental.tqdm_ray``,
+  ``experimental.dynamic_resources`` and ``cross_language``;
 - the Serve control plane (``ray_tpu_torch.serve``), whose
   ``serve.llm.build_llama_app`` serves Llama generation from a replica that
   holds a GPU;

@@ -3,8 +3,9 @@
 The port's copy of the runtime holds what its paths reach. Where a copied
 module reaches further through a function-level import, it raises the
 error built here instead: the conda and container runtime envs (the agent's
-worker setup) and the autoscaler (``cluster_utils``), which ROADMAP Queue 1
-lists among the modules still to port.
+worker setup) and the autoscaler (``cluster_utils.AutoscalingCluster`` and
+the CLI's ``up`` and ``down``), which ROADMAP Queue 1 lists among the
+modules still to port.
 """
 
 from __future__ import annotations

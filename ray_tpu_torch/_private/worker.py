@@ -3066,7 +3066,10 @@ class Worker:
         if reply.get("existing"):
             view = reply["existing"]
             existing_id = ActorID.from_hex(view["actor_id"])
-            self._track_actor(existing_id, view)
+            st = self._track_actor(existing_id, view)
+            if st.state != "ALIVE":
+                # as in get_named_actor
+                self._refetch_actor(st)
             return existing_id, view
         self._track_actor(actor_id, {"state": "PENDING_CREATION"})
         return actor_id, reply
@@ -3176,21 +3179,30 @@ class Worker:
         if st is None:
             st = self._track_actor(actor_id, {"state": "PENDING_CREATION"})
             self._ensure_actor_subscription()
-
-            async def fetch():
-                # a batched anonymous create may still be queued locally:
-                # flush it first so the head can answer; outage-queued
-                # (_head_call_async) so a worker's lazy head connect or a
-                # head bounce delays rather than loses the fetch
-                await self._drain_actor_creates()
-                view = await self._head_call_async(
-                    "GetActor", {"actor_id": actor_id.hex()},
-                    timeout=CONFIG.control_rpc_timeout_s)
-                if view:
-                    st.update(view, self)
-
-            self._spawn(fetch())
+            self._refetch_actor(st)
         return st
+
+    def _refetch_actor(self, st: "_ActorState") -> None:
+        """Read the head's view of ``st``'s actor again, in the background.
+        Actor events for an actor this process does not track yet are
+        dropped, so a view read before the actor was tracked can miss the
+        transitions since (the ALIVE of an actor looked up while it was
+        PENDING_CREATION): the calls queued on it would wait forever."""
+        actor_id = st.actor_id
+
+        async def fetch():
+            # a batched anonymous create may still be queued locally:
+            # flush it first so the head can answer; outage-queued
+            # (_head_call_async) so a worker's lazy head connect or a
+            # head bounce delays rather than loses the fetch
+            await self._drain_actor_creates()
+            view = await self._head_call_async(
+                "GetActor", {"actor_id": actor_id.hex()},
+                timeout=CONFIG.control_rpc_timeout_s)
+            if view:
+                st.update(view, self)
+
+        self._spawn(fetch())
 
     def submit_actor_task(
         self,
@@ -3370,7 +3382,11 @@ class Worker:
                              f"'{namespace}'")
         actor_id = ActorID.from_hex(view["actor_id"])
         self._ensure_actor_subscription()
-        self._track_actor(actor_id, view)
+        st = self._track_actor(actor_id, view)
+        if st.state != "ALIVE":
+            # Port fix (the reference has the window): its ALIVE may have
+            # been published between the lookup and the tracking
+            self._refetch_actor(st)
         return actor_id, view
 
     def kv(self):

@@ -187,7 +187,9 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     ``cluster_utils``, ``util``'s state, chaos, actor pool, queue and
     check_serialize, the DAG API and its channel, and the rest of ``util``
     (accelerators, tracing, multiprocessing, joblib, iter, dask, rpdb, the
-    ``ray://`` client) included, imports neither jax
+    ``ray://`` client), job submission, the dashboard, the CLI, durable
+    workflows, ``tqdm_ray``, ``dynamic_resources`` and ``cross_language``
+    included, imports neither jax
     nor ``ray_tpu``; no import statement names them, and no string is a jax
     or ``ray_tpu`` module path (``python -m ...``)."""
     code = (
@@ -243,7 +245,15 @@ def test_package_imports_no_jax_and_no_ray_tpu():
         "        'ray_tpu_torch.util.iter', 'ray_tpu_torch.util.dask',\n"
         "        'ray_tpu_torch.util.rpdb', 'ray_tpu_torch.util.client',\n"
         "        'ray_tpu_torch.util.client.client',\n"
-        "        'ray_tpu_torch.util.client.server'} <= "
+        "        'ray_tpu_torch.util.client.server',\n"
+        "        'ray_tpu_torch.job_submission', 'ray_tpu_torch.dashboard',\n"
+        "        'ray_tpu_torch.dashboard.web',\n"
+        "        'ray_tpu_torch.dashboard.grafana',\n"
+        "        'ray_tpu_torch.scripts', 'ray_tpu_torch.scripts.cli',\n"
+        "        'ray_tpu_torch.workflow',\n"
+        "        'ray_tpu_torch.experimental.tqdm_ray',\n"
+        "        'ray_tpu_torch.experimental.dynamic_resources',\n"
+        "        'ray_tpu_torch.cross_language'} <= "
         "set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"

@@ -53,6 +53,13 @@ def test_transformers_trainer_tiny(port4, tmp_path):
     out_dir = str(tmp_path / "hf_out")
 
     def loop(config):
+        import os
+
+        # transformers imports TensorFlow and jax for backends this loop
+        # never uses (~18 s of a ~40 s import here, and jax into a port
+        # worker): torch only
+        os.environ["USE_TF"] = "0"
+        os.environ["USE_FLAX"] = "0"
         import torch
         import transformers
 
