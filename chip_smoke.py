@@ -1701,12 +1701,18 @@ def phase_autoscale_conda(card):
     venv prefix), and scales it down once it is idle. The task runs the
     port's ``attention`` at the serving shape on inputs drawn from
     ``AUTOSCALE_SEED``: K1 = 1 in its worker, its output bit-equal to the
-    driver's call. Returns the task's K1 launches and the figures."""
+    driver's call. The session's head, the launched node and the conda
+    worker run under the concurrency sanitizer (``RAY_TPU_TORCH_SANITIZE=1``
+    in the environment they inherit; the driver stays unsanitized): the
+    worker must report it installed with the static lock graph loaded and
+    no violation, and no log of the session may hold a violation line.
+    Returns the task's K1 launches and the figures."""
     import shutil
     import tempfile
 
     import ray_tpu_torch
     from ray_tpu_torch._private import lifecycle
+    from ray_tpu_torch._private.config import CONFIG
     from ray_tpu_torch._private.resources import ResourceSet
     from ray_tpu_torch.autoscaler.v2 import get_cluster_status
     from ray_tpu_torch.cluster_utils import AutoscalingCluster
@@ -1738,18 +1744,40 @@ def phase_autoscale_conda(card):
         if o.device.type == "cuda":
             torch.cuda.synchronize()
         import ray_tpu_torch as rt
+        from ray_tpu_torch._private import sanitizer
 
         return {"o": o.cpu(), "k1": fa.launches - before, "pid": os.getpid(),
                 "exe": sys.executable,
                 "conda_prefix": os.environ.get("CONDA_PREFIX"),
                 "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
                 "node": rt.get_runtime_context().get_node_id()
-                if rt.is_initialized() else None}
+                if rt.is_initialized() else None,
+                "sanitized": sanitizer.ENABLED,
+                "static_edges": len(sanitizer._static_edges),
+                "violations": list(sanitizer.VIOLATIONS)}
 
     def gpu_total(status):
         return status.total_resources.get("GPU", 0.0)
 
+    def sanitizer_lines(*sessions):
+        """The sanitizer's violation lines in the sessions' logs."""
+        found = []
+        for sess in sessions:
+            for root, _, names in os.walk(os.path.join(sess, "logs")):
+                for name in sorted(names):
+                    with open(os.path.join(root, name), "rb") as f:
+                        found += [f"{name}: {ln.strip()}" for ln in
+                                  f.read().decode("utf-8", "replace")
+                                  .splitlines() if "SANITIZE " in ln]
+        return found
+
+    # the head and the launched node spawn with the driver's environment;
+    # the driver connects with it unset, so its own process is not wrapped
+    san_key = "RAY_TPU_TORCH_SANITIZE"
+    env_before = os.environ.get(san_key)
+    overrides_before = dict(CONFIG._overrides)
     t0 = time.perf_counter()
+    os.environ[san_key] = "1"
     cluster = AutoscalingCluster(
         head_resources={"CPU": 2},
         worker_node_types={"gpu": {"resources": {"CPU": 2, "GPU": 1},
@@ -1761,7 +1789,9 @@ def phase_autoscale_conda(card):
     procs, worker_pid, rid = [], None, None
     try:
         try:
+            os.environ.pop(san_key)
             ray_tpu_torch.init(address=cluster.address, num_gpus=0)
+            os.environ[san_key] = "1"
             head_s = time.perf_counter() - t0
             own_session = ray_tpu_torch._global_node.session_dir
             gpus_before = gpu_total(get_cluster_status())
@@ -1815,11 +1845,18 @@ def phase_autoscale_conda(card):
             after = gpu_total(get_cluster_status())
             all_procs = lifecycle.list_registered(session_dir) + \
                 lifecycle.list_registered(own_session)
+            san_logged = sanitizer_lines(session_dir, own_session)
         finally:
             ray_tpu_torch.shutdown()
     finally:
         cluster.shutdown()
         shutil.rmtree(tmp, ignore_errors=True)
+        if env_before is None:
+            os.environ.pop(san_key, None)
+        else:
+            os.environ[san_key] = env_before
+        CONFIG._overrides.clear()  # the head broadcast its sanitize=True
+        CONFIG._overrides.update(overrides_before)
     phase_s = time.perf_counter() - t43
     log(f"[t] phase 43 launch: {launch_s} s from submit to the provider's "
         f"node")
@@ -1838,6 +1875,17 @@ def phase_autoscale_conda(card):
         f"bit-equal to the driver's call: {equal}; {terminations} "
         f"termination(s), marked dead {dead}, its processes alive {left}, "
         f"GPU in the cluster after {after}; {card}")
+    log(f"[43] sanitizer in the conda worker: installed {out['sanitized']}, "
+        f"{out['static_edges']} static lock-order edges loaded, violations "
+        f"{out['violations']}; violation lines in the session's logs "
+        f"{san_logged}")
+    if not out["sanitized"] or out["static_edges"] == 0:
+        raise AssertionError(f"the conda worker ran unsanitized "
+                             f"({out['sanitized']}) or without the static "
+                             f"lock graph ({out['static_edges']} edges)")
+    if out["violations"] or san_logged:
+        raise AssertionError(f"sanitizer violations: worker "
+                             f"{out['violations']}, logs {san_logged}")
     if launches != 1 or out["node"] != rid:
         raise AssertionError(f"{launches} launches; the task ran on "
                              f"{out['node']}, the launched node is {rid}")

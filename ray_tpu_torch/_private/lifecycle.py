@@ -329,14 +329,30 @@ def gc_stale_sessions(session_roots: Optional[List[str]] = None,
 _PR_SET_PDEATHSIG = 1
 
 
-def _set_pdeathsig(sig: int) -> bool:
+def _resolve_prctl():
     try:
         import ctypes
 
-        libc = ctypes.CDLL("libc.so.6", use_errno=True)
-        return libc.prctl(_PR_SET_PDEATHSIG, sig, 0, 0, 0) == 0
-    except Exception:
-        return False
+        return ctypes.CDLL(None, use_errno=True).prctl
+    except (OSError, AttributeError):
+        return None
+
+
+# resolved once at import, so that a forked child (``die_with_parent``)
+# calls into libc without taking the dynamic loader's lock
+_PRCTL = _resolve_prctl()
+
+
+def _set_pdeathsig(sig: int) -> bool:
+    return _PRCTL is not None and _PRCTL(_PR_SET_PDEATHSIG, sig, 0, 0, 0) == 0
+
+
+def die_with_parent() -> None:
+    """``preexec_fn`` for a ``Popen`` whose child must not outlive its
+    spawner where no session registry is there to sweep it: the child gets
+    SIGKILL when the spawning thread dies, a SIGKILL of the spawner
+    included. Linux only; elsewhere it does nothing."""
+    _set_pdeathsig(signal.SIGKILL)
 
 
 def fate_share_with_parent(

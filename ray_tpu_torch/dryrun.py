@@ -49,6 +49,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch._private.lifecycle import die_with_parent
+
 _SECTION_TIMES: List[Tuple[str, float]] = []
 
 
@@ -475,7 +477,7 @@ def _run_entry_workers(flag: str, coord: str, timeout: float) -> List[str]:
             [sys.executable, "-m", "ray_tpu_torch.dryrun", flag, str(host),
              str(local_rank), coord],
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+            text=True, preexec_fn=die_with_parent)
         for host in range(HOSTS) for local_rank in range(LOCAL)]
     outs = []
     try:

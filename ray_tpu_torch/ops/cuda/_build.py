@@ -21,6 +21,8 @@ import time
 from pathlib import Path
 from typing import Dict, Tuple
 
+from ray_tpu_torch._private.lifecycle import die_with_parent
+
 _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
@@ -63,7 +65,8 @@ def _start(name: str):
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True,
+                            preexec_fn=die_with_parent)
     return proc, tmp, out
 
 

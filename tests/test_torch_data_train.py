@@ -313,8 +313,30 @@ def test_batch_predictor_matches_jax(port_cluster, jax_reference, inputs,
         apply_fn=apply, device="cpu").predict(
         ds, batch_size=3, concurrency=1).take_all()
     got = np.stack([r["predictions"] for r in rows])
-    np.testing.assert_array_equal(np.stack([r["features"] for r in rows]),
-                                  prompts)
+    features = np.stack([r["features"] for r in rows])
+    np.testing.assert_array_equal(
+        features, prompts,
+        err_msg=_rows_that_differ(features, prompts, "prompt"))
     want = jax_reference["predictions"]
     assert got.shape == want.shape == (7, 16, tc.vocab_size)
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(
+        got, want, atol=1e-4, rtol=1e-4,
+        err_msg=_rows_that_differ(got, want, "JAX", atol=1e-4, rtol=1e-4))
+
+
+def _rows_that_differ(got, want, ref_name, atol=0.0, rtol=0.0):
+    """One line for each row of ``got`` that differs from ``want`` beyond
+    the tolerance: its index, how many of its values differ, and the worst
+    one's position, port value and reference value."""
+    lines = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        bad = ~np.isclose(g, w, atol=atol, rtol=rtol, equal_nan=True)
+        if not bad.any():
+            continue
+        err = np.where(bad, np.abs(g.astype(np.float64) - w), -1.0)
+        j = tuple(int(k) for k in np.unravel_index(int(np.argmax(err)),
+                                                   g.shape))
+        lines.append(f"row {i}: {int(bad.sum())} of {bad.size} differ; "
+                     f"worst at {j}: port {g[j].item()!r}, {ref_name} "
+                     f"{w[j].item()!r}")
+    return "\n".join(["rows that differ:"] + lines) if lines else ""

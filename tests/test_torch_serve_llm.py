@@ -188,7 +188,8 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     check_serialize, the DAG API and its channel, and the rest of ``util``
     (accelerators, tracing, multiprocessing, joblib, iter, dask, rpdb, the
     ``ray://`` client), job submission, the dashboard, the CLI, durable
-    workflows, ``tqdm_ray``, ``dynamic_resources`` and ``cross_language``
+    workflows, ``tqdm_ray``, ``dynamic_resources``, ``cross_language`` and
+    raylint (``devtools.lint``, whose ``__main__`` runs only as a script)
     included, imports neither jax
     nor ``ray_tpu``; no import statement names them, and no string is a jax
     or ``ray_tpu`` module path (``python -m ...``)."""
@@ -253,7 +254,11 @@ def test_package_imports_no_jax_and_no_ray_tpu():
         "        'ray_tpu_torch.workflow',\n"
         "        'ray_tpu_torch.experimental.tqdm_ray',\n"
         "        'ray_tpu_torch.experimental.dynamic_resources',\n"
-        "        'ray_tpu_torch.cross_language'} <= "
+        "        'ray_tpu_torch.cross_language',\n"
+        "        'ray_tpu_torch.devtools.lint',\n"
+        "        'ray_tpu_torch.devtools.lint.cli',\n"
+        "        'ray_tpu_torch.devtools.lint.__main__',\n"
+        "        'ray_tpu_torch.devtools.lint.rules.r8_config_knobs'} <= "
         "set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
