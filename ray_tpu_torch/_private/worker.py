@@ -260,11 +260,26 @@ class ReferenceCounter:
         if ev is not None:
             self.worker._loop_call(ev.set)
 
-    def add_location(self, binary: bytes, addr: Dict):
+    def add_location(self, binary: bytes, addr: Dict) -> bool:
+        """Record a copy at ``addr``; False when the object is freed (or
+        not owned here), so that the caller frees that copy."""
         with self._lock:
             meta = self._owned.get(binary)
-            if meta and addr not in meta.locations:
+            if meta is None or meta.state == "freed":
+                return False
+            if addr not in meta.locations:
                 meta.locations.append(addr)
+            return True
+
+    def mark_freed(self, meta: "OwnedObjectMeta") -> Tuple[str, List[Dict]]:
+        """Mark an owned object freed and hand back its state and the
+        copies to free, under the lock ``add_location`` takes: a copy
+        announced after this is refused there, never lost."""
+        with self._lock:
+            state, locations = meta.state, list(meta.locations)
+            meta.state = "freed"
+            meta.locations = []
+        return state, locations
 
     # -- counting ------------------------------------------------------------
     def add_local_ref(self, ref: ObjectRef):
@@ -1390,7 +1405,12 @@ class Worker:
         self.reference_counter.remove_borrow(bytes.fromhex(p["object_id"]))
 
     async def _handle_location_added(self, conn, p):
-        self.reference_counter.add_location(bytes.fromhex(p["object_id"]), p["addr"])
+        if not self.reference_counter.add_location(
+                bytes.fromhex(p["object_id"]), p["addr"]):
+            # freed before this notice landed: the pulling agent wakes
+            # its readers before it tells the owner, so a reader that
+            # drops the ref at once frees the object without this copy
+            await self._free_copy(p["addr"], p["object_id"])
 
     def _on_agent_push_sync(self, method: str, payload):
         """Agent-connection push dispatch. LeaseItem routes INLINE in the
@@ -2150,30 +2170,32 @@ class Worker:
         for ref in refs:
             self._free_owned(ref.binary())
 
+    async def _free_copy(self, loc: Dict, hex_id: str) -> None:
+        """Free one node's copy of an object (best effort)."""
+        try:
+            if loc == self.agent_tcp_addr:
+                await self.agent.call(
+                    "FreeObjects", {"ids": [hex_id]},
+                    timeout=CONFIG.control_rpc_timeout_s)
+            else:
+                client = await self._owner_client(loc)
+                await client.call(
+                    "FreeObjects", {"ids": [hex_id]},
+                    timeout=CONFIG.control_rpc_timeout_s)
+        except Exception:
+            pass
+
     def _free_owned(self, binary: bytes) -> None:
         meta = self.reference_counter.get_owned_meta(binary)
         if meta is None:
             return
-        state, locations = meta.state, list(meta.locations)
-        meta.state = "freed"
-        meta.locations = []
+        state, locations = self.reference_counter.mark_freed(meta)
         self.memory_store.delete(binary)
         hex_id = ObjectID(binary).hex()
         if state == "plasma":
             async def free_remote():
                 for loc in locations:
-                    try:
-                        if loc == self.agent_tcp_addr:
-                            await self.agent.call(
-                                "FreeObjects", {"ids": [hex_id]},
-                                timeout=CONFIG.control_rpc_timeout_s)
-                        else:
-                            client = await self._owner_client(loc)
-                            await client.call(
-                                "FreeObjects", {"ids": [hex_id]},
-                                timeout=CONFIG.control_rpc_timeout_s)
-                    except Exception:
-                        pass
+                    await self._free_copy(loc, hex_id)
 
             if self.connected:
                 self._spawn(free_remote())
@@ -3131,9 +3153,13 @@ class Worker:
     def _ensure_actor_subscription(self):
         if self._actor_sub_started:
             return
-        self._actor_sub_started = True
 
         async def sub():
+            # checked and set on the loop, so that callers on two threads
+            # subscribe once
+            if self._actor_sub_started:
+                return
+            self._actor_sub_started = True
             try:
                 await self.head.call("Subscribe", {"channels": ["actor"]},
                                      timeout=CONFIG.control_rpc_timeout_s)

@@ -31,6 +31,8 @@ from ray_tpu_torch._private.tree import tree_leaves, tree_map  # noqa: E402
 from ray_tpu_torch.models import llama as tl  # noqa: E402
 from ray_tpu_torch.parallel import optim as topt  # noqa: E402
 from ray_tpu_torch.parallel import train_step as tts  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 LEAVES = {"stacked": (2, 256, 4, 128), "matrix": (256, 192),
           "tied": (130, 130, 3), "small": (64, 100), "vector": (300,)}

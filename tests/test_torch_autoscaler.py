@@ -47,6 +47,8 @@ from ray_tpu_torch.autoscaler import launcher as port_launcher  # noqa: E402
 from ray_tpu_torch.autoscaler import resource_demand_scheduler as rds  # noqa: E402
 from ray_tpu_torch.autoscaler.v2 import instance_manager as port_im  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 PACKAGES = {"port": (rds, ResourceSet), "jax": (jax_rds, JaxResourceSet)}
 

@@ -21,6 +21,8 @@ import torch  # noqa: E402
 
 import ray_tpu_torch  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,8 @@ import ray_tpu_torch  # noqa: E402
 from ray_tpu.cluster_utils import Cluster as JaxCluster  # noqa: E402
 from ray_tpu_torch.cluster_utils import Cluster  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 def _scenario(rt, cluster, gpu_kw):

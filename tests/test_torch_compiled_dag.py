@@ -30,6 +30,8 @@ from ray_tpu.models import llama as jl  # noqa: E402
 from ray_tpu_torch.dag import CompiledDAG, InputNode, MultiOutputNode  # noqa: E402
 from ray_tpu_torch.models import llama as tl  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 @pytest.fixture(scope="module")

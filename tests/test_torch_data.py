@@ -28,7 +28,10 @@ import ray_tpu  # noqa: E402
 import ray_tpu.data  # noqa: E402
 import ray_tpu_torch  # noqa: E402
 import ray_tpu_torch.data  # noqa: E402
-from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402
+    jax_session, port_session_leak_check)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 GET_TIMEOUT_S = 60
 
@@ -117,8 +120,7 @@ def jax_reference(port_cluster):
     ``iter_jax_batches`` on the CPU."""
     import jax.numpy as jnp
 
-    ray_tpu.init(num_cpus=4)
-    try:
+    with jax_session():
         out = {p.__name__: p(ray_tpu, ray_tpu.data) for p in PROGRAMS}
         out["iter_jax_batches"] = [
             {k: np.asarray(v) for k, v in b.items()}
@@ -126,8 +128,6 @@ def jax_reference(port_cluster):
                 lambda b: {"id": b["id"], "x": b["id"] * 0.25}
             ).iter_jax_batches(batch_size=8,
                                dtypes={"x": jnp.float32})]
-    finally:
-        ray_tpu.shutdown()
     return out
 
 

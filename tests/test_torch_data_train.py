@@ -49,8 +49,11 @@ from ray_tpu.parallel import sharding as jsh  # noqa: E402
 from ray_tpu.parallel.mesh import MeshConfig, create_mesh  # noqa: E402
 from ray_tpu_torch.models import llama as tl  # noqa: E402
 from tests._torch_ranks import run_ranks  # noqa: E402
-from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402
+    jax_session, port_session_leak_check)
 from tests.test_torch_train_step import _np  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 SEQ, BATCH, STEPS = 64, 4, 3  # tests/test_bench_datafed.py's tiny run
 TARGETS = ("wq", "wv")
@@ -168,8 +171,7 @@ def jax_reference(port_cluster, inputs, tmp_path_factory):
             return state, m
         return recording_step
 
-    ray_tpu.init(num_cpus=4)
-    try:
+    with jax_session():
         result = JaxTrainer(
             _shard_loop(), train_loop_config={"out": out_dir,
                                               "pkg": "ray_tpu"},
@@ -192,8 +194,6 @@ def jax_reference(port_cluster, inputs, tmp_path_factory):
         assert n == STEPS
         predictions = _predict_jax(inputs["params"], inputs["lora"],
                                    inputs["prompts"])
-    finally:
-        ray_tpu.shutdown()
     return {"shards": shards, "datafed": rec, "predictions": predictions}
 
 

@@ -32,6 +32,8 @@ from ray_tpu_torch.ops.blockwise_attention import (  # noqa: E402
     blockwise_attention)
 from ray_tpu_torch.parallel import optim as topt  # noqa: E402
 from ray_tpu_torch.parallel import train_step as tts  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 # fp32 on both sides, sums in other orders: the forward tolerance of
 # tests/test_torch_llama.py (test_forward_fp32_matches)

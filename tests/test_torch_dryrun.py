@@ -44,6 +44,8 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 import __graft_entry__ as jentry  # noqa: E402
 from ray_tpu_torch import dryrun  # noqa: E402
 from ray_tpu_torch.models import llama as tl  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 SECTIONS = ["tiny-4d-mesh", "pipeline-gpipe", "ddppo-data-mesh",
             "moe-expert-mesh", "two-process-mesh", "two-slice-dcn"]

@@ -22,6 +22,8 @@ from ray_tpu.ops.pallas.flash_attention import _flash_fwd  # noqa: E402
 from ray_tpu_torch.ops.attention import attention, reference_attention  # noqa: E402
 from ray_tpu_torch.ops.cuda import _build  # noqa: E402
 from ray_tpu_torch.ops.cuda import flash_attention as tfa  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 # fp32 forward tolerance of the reference's own kernel test (test_ops.py)
 TOL32 = dict(atol=2e-5, rtol=2e-5)

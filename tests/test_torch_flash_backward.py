@@ -25,6 +25,8 @@ from ray_tpu.ops.pallas.flash_attention import (  # noqa: E402
     _flash_bwd, _flash_fwd, flash_attention as jax_flash_attention)
 from ray_tpu_torch.ops.attention import reference_attention  # noqa: E402
 from ray_tpu_torch.ops.cuda import flash_attention as tfa  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 # the reference's own gradient tolerances (tests/test_ops.py
 # TestFlashBackward): fp32 5e-5, and 1e-3 where GQA sums a group's heads

@@ -29,6 +29,8 @@ import torch  # noqa: E402
 
 from ray_tpu.ops.pallas.flash_attention import _flash_bwd, _flash_fwd  # noqa: E402
 from ray_tpu_torch.ops.cuda import flash_attention as tfa  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 # chip_smoke.py's bf16 tolerances: o absolute, lse absolute, grads as the
 # largest error relative to max|reference|

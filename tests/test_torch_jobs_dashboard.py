@@ -40,6 +40,8 @@ from ray_tpu_torch.dashboard import start_dashboard  # noqa: E402
 from ray_tpu_torch.job_submission import (  # noqa: E402
     JobStatus, JobSubmissionClient)
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PY = shlex.quote(sys.executable)

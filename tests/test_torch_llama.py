@@ -21,6 +21,8 @@ import torch  # noqa: E402
 from ray_tpu.models import llama as jl  # noqa: E402
 from ray_tpu_torch.models import llama as tl  # noqa: E402
 from ray_tpu_torch.ops.cuda import flash_attention as tfa  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 _TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 

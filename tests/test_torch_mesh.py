@@ -41,6 +41,8 @@ from ray_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from ray_tpu_torch.parallel import optim as topt  # noqa: E402
 from ray_tpu_torch.parallel import sharding as tsh  # noqa: E402
 from ray_tpu_torch.parallel import train_step as tts  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 WORLD = 8
 MESHES = [dict(data=-1, fsdp=2, tensor=2), dict(data=-1, fsdp=4),

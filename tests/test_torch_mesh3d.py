@@ -41,6 +41,8 @@ from tests._torch_ranks import run_ranks  # noqa: E402
 from tests.test_torch_sharded_step import (  # noqa: E402
     _metrics_close, _update_close)
 from tests.test_torch_train_step import _batch, _np  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 MESH = dict(data=-1, fsdp=2, seq=2, tensor=2)
 

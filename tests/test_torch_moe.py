@@ -39,6 +39,8 @@ from ray_tpu_torch.models import llama as tl  # noqa: E402
 from ray_tpu_torch.models import moe as tm  # noqa: E402
 from ray_tpu_torch.parallel import optim as topt  # noqa: E402
 from ray_tpu_torch.parallel import train_step as tts  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 _TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 DTYPES = [pytest.param(jnp.float32, id="fp32"),

@@ -39,6 +39,8 @@ from ray_tpu.parallel.train_step import (  # noqa: E402
     create_train_state, make_train_step)
 from ray_tpu_torch.models import moe as tm  # noqa: E402
 from tests._torch_ranks import run_ranks  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 TOL_LOSS, TOL_GRAD, TOL_STEPS, TOL_UPDATE = 1e-6, 1e-5, 1e-4, 1e-3
 MESHES = {"data2_expert4": dict(data=2, expert=4),

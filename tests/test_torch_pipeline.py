@@ -44,6 +44,8 @@ from ray_tpu.parallel.pipeline import (  # noqa: E402
     init_stage_params, make_pipeline_train_step, pipeline_apply)
 from ray_tpu_torch.parallel import pipeline as tp  # noqa: E402
 from tests._torch_ranks import run_ranks  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 D = 16
 ATOL_FWD, ATOL_GRAD, LOSS_REL, UPDATE_REL = 1e-5, 1e-6, 1e-6, 1e-3

@@ -21,6 +21,8 @@ from ray_tpu._private import ray_perf as jax_perf  # noqa: E402
 from ray_tpu_torch._private import ray_perf  # noqa: E402
 from ray_tpu_torch._private.config import CONFIG  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 FLAGS = ("submit_fastpath_enabled", "completion_batch_enabled")
 

@@ -41,6 +41,8 @@ from ray_tpu_torch.devtools.lint import concurrency  # noqa: E402
 from ray_tpu_torch.devtools.lint.cli import main as lint_main  # noqa: E402
 from ray_tpu_torch.devtools.lint.engine import (  # noqa: E402
     default_baseline_path, run_lint)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_ROOT = os.path.dirname(TESTS_DIR)

@@ -42,6 +42,8 @@ from ray_tpu.parallel.mesh import MeshConfig, create_mesh  # noqa: E402
 from ray_tpu_torch.ops import ring_attention as tra  # noqa: E402
 from tests._torch_ranks import run_ranks  # noqa: E402
 from tests.test_torch_train_step import _batch, _np  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 CASES = {"p4_causal_mha": dict(P=4, B=2, S=64, H=4, KVH=4, D=16,
                                causal=True, seed=3),

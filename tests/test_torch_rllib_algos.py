@@ -31,6 +31,8 @@ from ray_tpu_torch.rllib import IMPALAConfig, PPOConfig  # noqa: E402
 from ray_tpu_torch.rllib.connectors import (  # noqa: E402
     ConnectorPipeline, FrameStack, NormalizeObs)
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

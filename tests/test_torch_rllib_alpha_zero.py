@@ -39,6 +39,8 @@ from tests.test_torch_rllib_core import (  # noqa: E402
     TOL, _named, _update_close)
 from tests.test_torch_rllib_learning import _run_until  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 N = 8
 SPEC = dict(obs_dim=N, action_dim=2, hiddens=(16, 16))

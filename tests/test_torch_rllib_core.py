@@ -50,6 +50,8 @@ from ray_tpu_torch.rllib.core.learner_group import LearnerGroup  # noqa: E402
 from ray_tpu_torch.rllib.models import catalog as tcat  # noqa: E402
 from tests._torch_ranks import run_ranks  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 TOL, UPDATE_REL = 1e-5, 1e-3
 SPEC = dict(obs_dim=8, action_dim=4)

@@ -36,6 +36,8 @@ from ray_tpu_torch.rllib.algorithms.dreamerv3 import (  # noqa: E402
 from ray_tpu_torch.rllib.core.rl_module import rl_params_from_jax  # noqa: E402
 from tests.test_torch_rllib_core import (  # noqa: E402
     _named, _rel_max, _update_close)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 TOL, TOL_UPDATE = 1e-5, 1e-4
 SPEC = dict(obs_dim=6, action_dim=3, deter=32, stoch=4, classes=4,

@@ -48,6 +48,8 @@ from ray_tpu_torch.rllib.core.rl_module import (  # noqa: E402
     RLModuleSpec, rl_params_from_jax)
 from tests.test_torch_rllib_core import TOL, _named, _rel_max  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 SPEC = dict(obs_dim=4, action_dim=2, hiddens=(8, 8))
 

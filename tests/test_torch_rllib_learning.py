@@ -20,6 +20,8 @@ import pytest  # noqa: E402
 import ray_tpu_torch  # noqa: E402
 from ray_tpu_torch.rllib import IMPALAConfig, PPOConfig  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 @pytest.fixture(scope="module")

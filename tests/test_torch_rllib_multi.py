@@ -23,6 +23,8 @@ from ray_tpu_torch._private.tree import tree_leaves  # noqa: E402
 from ray_tpu_torch.rllib import (  # noqa: E402
     DDPPOConfig, MultiAgentEnv, MultiAgentPPOConfig, PPO)
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 @pytest.fixture(scope="module")

@@ -46,6 +46,8 @@ from tests.test_torch_rllib_offpolicy import (  # noqa: E402
     _grads_close, _metrics_close, _normal, _t, perturbed, port_grads,
     to_port)
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 B = 32
 

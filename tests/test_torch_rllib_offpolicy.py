@@ -47,6 +47,8 @@ from ray_tpu_torch.rllib.core.rl_module import rl_params_from_jax  # noqa: E402
 from tests.test_torch_rllib_core import (  # noqa: E402
     TOL, _assert_tree_close, _close, _named, _rel_max, _update_close)
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 B = 32
 OBS, ACT = 3, 2

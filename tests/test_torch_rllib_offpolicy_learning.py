@@ -24,6 +24,8 @@ import ray_tpu_torch  # noqa: E402
 from tests.test_torch_rllib_learning import (  # noqa: E402
     _chain_env, _run_until)
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 @pytest.fixture(scope="module")

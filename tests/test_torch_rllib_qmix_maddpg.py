@@ -41,6 +41,8 @@ from ray_tpu_torch.rllib.core.rl_module import rl_params_from_jax  # noqa: E402
 from ray_tpu_torch.rllib.env.multi_agent_env import MultiAgentEnv  # noqa: E402
 from tests.test_torch_rllib_core import (  # noqa: E402
     TOL, _named, _rel_max, _update_close)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 @pytest.fixture(autouse=True, scope="module")

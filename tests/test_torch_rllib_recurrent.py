@@ -37,6 +37,8 @@ from tests.test_torch_rllib_core import (  # noqa: E402
 from tests.test_torch_rllib_offpolicy import (  # noqa: E402
     _grads_close, perturbed, port_grads, to_port)
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 SPEC = dict(obs_dim=3, action_dim=3, hiddens=(16,), lstm_cell_size=8)
 Bq, T = 6, 10

@@ -65,6 +65,8 @@ from ray_tpu_torch.rllib.env.env_runner import (  # noqa: E402
 from ray_tpu_torch.rllib.models import catalog as tcat  # noqa: E402
 from tests.test_torch_rllib_core import (  # noqa: E402
     TOL, _assert_tree_close, _close, _rel_max, _update_close)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 T, E = 64, 4
 # the envs' time limits, by index: episodes end by them and by falling

@@ -46,6 +46,8 @@ from ray_tpu_torch.rllib.utils.replay_buffer import (  # noqa: E402
 from ray_tpu_torch.rllib.utils.schedules import (  # noqa: E402
     piecewise_linear)
 from ray_tpu_torch.rllib.utils.vtrace import vtrace  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 TOL_VTRACE = 1e-6
 

@@ -5,15 +5,20 @@ daemons and settings stay apart from the JAX package's; a GPU lease sets
 ``CUDA_VISIBLE_DEVICES`` without touching CUDA.
 
 One port cluster per module. The JAX package's cluster runs the parity
-programs once, in a module fixture, and is shut down straight after: a JAX
-session that stays up is exposed to the other test processes' session-end
-reaping. Remote functions and classes are defined inside the tests, so that
-they travel by value and no worker imports this module (and with it jax)."""
+programs once, in a module fixture, and is shut down straight after; its
+session lies outside the JAX package's session roots (``jax_session``), so
+that the other test processes' session-end reaping never sees it. Remote
+functions and classes are defined inside the tests, so that they travel by
+value and no worker imports this module (and with it jax)."""
 
 import asyncio
+import contextlib
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
+import time
 import types
 
 from tests import conftest as _tier
@@ -31,6 +36,8 @@ from ray_tpu_torch._private import lifecycle as port_lifecycle  # noqa: E402
 from ray_tpu_torch._private.accelerators import nvidia_gpu  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the other workers' files end well inside the tier's time limit
+OTHER_SESSIONS_WAIT_S = 600.0
 
 
 def port_session_leak_check(session_dir: str) -> None:
@@ -47,6 +54,136 @@ def port_session_leak_check(session_dir: str) -> None:
                     f"shutdown [live: {live or 'none'}]", pytrace=False)
 
 
+def spawner(pid: int, var: str = "RAY_TPU_PARENT_PID"):
+    """The pid that started a daemon: its ``RAY_TPU_PARENT_PID`` (the JAX
+    package's) or ``RAY_TPU_TORCH_PARENT_PID`` (the port's)."""
+    try:
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            env = f.read().split(b"\0")
+    except OSError:
+        return None
+    for kv in env:
+        if kv.startswith(var.encode() + b"="):
+            try:
+                return int(kv.split(b"=", 1)[1])
+            except ValueError:
+                return None
+    return None
+
+
+def _is_mine(pid: int) -> bool:
+    """``pid`` is this process or one of its descendants."""
+    me = os.getpid()
+    for _ in range(64):
+        if pid == me:
+            return True
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                pid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            return False
+        if pid <= 1:
+            return False
+    return False
+
+
+def other_processes_jax_sessions():
+    """The JAX sessions under ``default_session_roots()`` whose head or
+    agent another live process started: under ``pytest -n``, the sessions
+    of the other workers' running tests."""
+    out = []
+    for sess in jax_lifecycle.list_sessions():
+        for rec in sess["live"]:
+            if rec.get("role") not in ("gcs", "agent"):
+                continue
+            owner = spawner(rec["pid"])
+            if owner and not _is_mine(owner) and \
+                    os.path.exists(f"/proc/{owner}"):
+                out.append(sess["path"])
+                break
+    return out
+
+
+def port_sessions_started_here():
+    """The port's live sessions whose head or agent this process started."""
+    return [s["path"] for s in port_lifecycle.list_sessions()
+            if any(r.get("role") in ("gcs", "agent") and
+                   spawner(r["pid"], "RAY_TPU_TORCH_PARENT_PID") ==
+                   os.getpid() for r in s["live"])]
+
+
+@pytest.fixture
+def no_port_session_left():
+    """For a test that boots and shuts down port clusters of its own: none
+    of them outlives it."""
+    assert port_sessions_started_here() == []
+    yield
+    assert port_sessions_started_here() == []
+
+
+@pytest.fixture(scope="session", autouse=True)
+def other_workers_jax_sessions_end():
+    """Hold this process's session end until the other workers' live JAX
+    sessions have ended (at most ``OTHER_SESSIONS_WAIT_S``). Under ``pytest
+    -n``, each worker's session-end ``lifecycle_leak_gate`` lists every
+    session under the JAX package's roots that its own baseline lacked: a
+    session another worker's test is running then is reaped under that
+    test, and reported as a leak against this worker's last test. Set up
+    after the gate, this fixture is torn down before it. A session whose
+    starter is this process, or has died, is not waited for: the gate
+    still reports and reaps every real leak."""
+    yield
+    deadline = time.monotonic() + OTHER_SESSIONS_WAIT_S
+    while other_processes_jax_sessions() and time.monotonic() < deadline:
+        time.sleep(0.5)
+
+
+@contextlib.contextmanager
+def jax_session(num_cpus: int = 4, nodes=()):
+    """``ray_tpu.init(num_cpus=num_cpus)`` on a node whose session dir lies
+    outside the JAX package's ``lifecycle.default_session_roots()``: under
+    ``pytest -n``, every other worker's session-end ``lifecycle_leak_gate``
+    reaps the live sessions under those roots, and this one it never lists.
+    ``nodes`` are the resources of more nodes to join, as
+    ``Cluster.add_node`` would. The dir is short (unix socket paths under
+    ``<session>/sockets`` are limited to 108 bytes) and is removed after.
+    Yields the root that holds the session, for
+    ``list_sessions(session_roots=[root])``."""
+    from ray_tpu._private.node import Node
+
+    base = "/dev/shm" if os.path.isdir("/dev/shm") else \
+        tempfile.gettempdir()
+    top = tempfile.mkdtemp(prefix="rtj-", dir=base)
+    root = os.path.join(top, "ray_tpu")
+    session_dir = os.path.join(root, "session_ref")
+    node, joined = None, []
+    try:
+        node = Node(head=True, resources={"CPU": float(num_cpus)},
+                    session_dir=session_dir)
+        node.start()
+        for res in nodes:
+            joined.append(Node(head=False, head_port=node.head_port,
+                               resources=dict(res), session_dir=session_dir))
+            joined[-1].start()
+        # init(_node=...) attaches to a started node and leaves
+        # _global_node unset; set it, so that shutdown() stops the node
+        # and removes its session as it does after a plain init()
+        ray_tpu.init(_node=node)
+        ray_tpu._global_node = node
+        deadline = time.monotonic() + 30
+        while sum(n["alive"] for n in ray_tpu.nodes()) < 1 + len(joined):
+            assert time.monotonic() < deadline, "nodes did not join"
+            time.sleep(0.1)
+        yield root
+    finally:
+        for n in joined:
+            n.stop()
+        ray_tpu.shutdown()
+        if node is not None:
+            node.stop(cleanup_session=True)
+        shutil.rmtree(top, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def port_cluster():
     ray_tpu_torch.init(num_cpus=4, resources={"GPU": 1})
@@ -61,17 +198,13 @@ def jax_reference(port_cluster, tmp_path_factory):
     """The parity programs' results through ``ray_tpu``, and both packages'
     session lists while both clusters were up."""
     tmp = str(tmp_path_factory.mktemp("jax_reference"))
-    ray_tpu.init(num_cpus=4)
-    try:
-        ref = {"session": ray_tpu._global_node.session_dir,
-               "results": {p.__name__: p(ray_tpu, tmp) for p in PROGRAMS},
-               "jax_paths": {s["path"] for s in
-                             jax_lifecycle.list_sessions()},
-               "port_paths": {s["path"] for s in
-                              port_lifecycle.list_sessions()}}
-    finally:
-        ray_tpu.shutdown()
-    return ref
+    with jax_session() as root:
+        return {"session": ray_tpu._global_node.session_dir,
+                "results": {p.__name__: p(ray_tpu, tmp) for p in PROGRAMS},
+                "jax_paths": {s["path"] for s in jax_lifecycle.list_sessions(
+                    session_roots=[root])},
+                "port_paths": {s["path"] for s in
+                               port_lifecycle.list_sessions()}}
 
 
 # ---------------------------------------------------------------- daemons

@@ -33,6 +33,8 @@ from ray_tpu_torch.runtime_env import conda as port_conda  # noqa: E402
 from ray_tpu_torch.runtime_env import container as port_container  # noqa: E402
 from ray_tpu_torch.runtime_env import runtime_env as port_renv  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 HAVE_ENGINE = bool(shutil.which("podman") or shutil.which("docker"))
 PKG_PARENT = os.path.dirname(os.path.dirname(

@@ -25,6 +25,8 @@ _tier.FAST_FILES.add(os.path.basename(__file__))
 import pytest  # noqa: E402
 
 from ray_tpu_torch._private import sanitizer  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOCK_GRAPH = os.path.join(REPO, "ray_tpu_torch", "devtools", "lint",

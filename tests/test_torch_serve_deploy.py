@@ -27,6 +27,8 @@ from ray_tpu_torch.exceptions import BackPressureError, RayTpuError  # noqa: E40
 from ray_tpu_torch.models.llama import LlamaConfig  # noqa: E402
 from ray_tpu_torch.serve import llm  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 TINY = dataclasses.replace(LlamaConfig.tiny(), dtype=torch.float32)
 GEN_KW = dict(lora_rank=2, max_batch_size=2, allowed_batch_sizes=(1, 2),

@@ -29,6 +29,8 @@ from ray_tpu_torch.models.llama import (  # noqa: E402
 from ray_tpu_torch.serve._private.engine import (  # noqa: E402
     ContinuousBatchingEngine)
 from ray_tpu_torch.serve.llm import LlamaGenerator  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -190,9 +192,10 @@ def test_package_imports_no_jax_and_no_ray_tpu():
     ``ray://`` client), job submission, the dashboard, the CLI, durable
     workflows, ``tqdm_ray``, ``dynamic_resources``, ``cross_language`` and
     raylint (``devtools.lint``, whose ``__main__`` runs only as a script)
-    included, imports neither jax
-    nor ``ray_tpu``; no import statement names them, and no string is a jax
-    or ``ray_tpu`` module path (``python -m ...``)."""
+    and the scale and chaos envelope (``scale_bench``) included, imports
+    neither jax nor ``ray_tpu`` nor the root ``scale_bench.py``; no import
+    statement names them, and no string is a jax, ``ray_tpu`` or
+    ``scale_bench`` module path (``python -m ...``)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import ray_tpu_torch\n"
@@ -258,12 +261,13 @@ def test_package_imports_no_jax_and_no_ray_tpu():
         "        'ray_tpu_torch.devtools.lint',\n"
         "        'ray_tpu_torch.devtools.lint.cli',\n"
         "        'ray_tpu_torch.devtools.lint.__main__',\n"
-        "        'ray_tpu_torch.devtools.lint.rules.r8_config_knobs'} <= "
+        "        'ray_tpu_torch.devtools.lint.rules.r8_config_knobs',\n"
+        "        'ray_tpu_torch.scale_bench'} <= "
         "set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'ray_tpu')]\n"
+        "('jax', 'jaxlib', 'ray_tpu', 'scale_bench')]\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -282,9 +286,11 @@ def test_package_imports_no_jax_and_no_ray_tpu():
                 # a whole string that is a module path, to run or import
                 # (docstrings name the reference's modules freely)
                 names = [node.value] if re.fullmatch(
-                    r"(?:jax|jaxlib|ray_tpu)(?:\.\w+)+", node.value) else []
+                    r"(?:jax|jaxlib|ray_tpu)(?:\.\w+)+|scale_bench(?:\.\w+)*",
+                    node.value) else []
             else:
                 continue
             offenders += [f"{path.name}: {n}" for n in names
-                          if n.split(".")[0] in ("jax", "jaxlib", "ray_tpu")]
+                          if n.split(".")[0] in ("jax", "jaxlib", "ray_tpu",
+                                                 "scale_bench")]
     assert not offenders, offenders

@@ -51,6 +51,8 @@ from tests._torch_ranks import run_ranks  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
 from tests.test_torch_train_step import (  # noqa: E402
     ALL_TARGETS, _batch, _jax_lora, _np, _tb)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 LOSS_REL_FIRST, LOSS_REL, UPDATE_REL = 1e-5, 1e-4, 1e-3
 

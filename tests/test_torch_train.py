@@ -32,6 +32,8 @@ from ray_tpu_torch.train import (  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
 from tests.test_torch_train_step import (  # noqa: E402
     ALL_TARGETS, _batch, _cfgs, _run_jax_steps)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ScalingConfig(num_workers=2, use_gpu=False)

@@ -34,6 +34,8 @@ from ray_tpu_torch.parallel import optim as topt  # noqa: E402
 from ray_tpu_torch.parallel import train_step as tts  # noqa: E402
 from ray_tpu_torch.train._internal.checkpoint_manager import (  # noqa: E402
     CheckpointManager)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 @pytest.fixture(autouse=True, scope="module")

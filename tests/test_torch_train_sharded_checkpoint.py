@@ -33,6 +33,8 @@ from ray_tpu_torch.train import (  # noqa: E402
     load_pytree_orbax, save_pytree_orbax)
 from tests._torch_ranks import run_ranks  # noqa: E402
 from tests.test_torch_train_step import ALL_TARGETS, _batch  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 def _tree_np(seed=0):

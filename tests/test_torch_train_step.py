@@ -31,6 +31,8 @@ from ray_tpu_torch._private.tree import tree_leaves, tree_map  # noqa: E402
 from ray_tpu_torch.ops.cuda import flash_attention as tfa  # noqa: E402
 from ray_tpu_torch.parallel import optim as topt  # noqa: E402
 from ray_tpu_torch.parallel import train_step as tts  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 ALL_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 

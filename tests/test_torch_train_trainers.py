@@ -25,6 +25,8 @@ import pytest  # noqa: E402
 import ray_tpu_torch  # noqa: E402
 from ray_tpu_torch.train import ScalingConfig  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 CPU1 = ScalingConfig(num_workers=1, use_gpu=False)
 

@@ -34,6 +34,8 @@ from ray_tpu_torch.tune.search import basic_variant as tbv  # noqa: E402
 from ray_tpu_torch.tune.search import bayesopt as tbo  # noqa: E402
 from ray_tpu_torch.tune.search.searcher import (  # noqa: E402
     ConcurrencyLimiter, Searcher)
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 TOL_CONTINUOUS = 1e-12
 

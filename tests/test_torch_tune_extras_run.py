@@ -26,6 +26,8 @@ from ray_tpu_torch.tune.search.basic_variant import (  # noqa: E402
     BasicVariantGenerator)
 from ray_tpu_torch.tune.search.searcher import Searcher  # noqa: E402
 from tests.test_torch_tune_run import port_cluster  # noqa: E402,F401
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 def _train_fn():

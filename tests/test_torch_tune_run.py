@@ -33,6 +33,8 @@ from ray_tpu_torch.tune import TuneConfig, Tuner  # noqa: E402
 from ray_tpu_torch.tune.schedulers import (  # noqa: E402
     ASHAScheduler, MedianStoppingRule, PopulationBasedTraining)
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEADLINES = {"RAY_TPU_TORCH_TUNE_RESULT_TIMEOUT_S": "120",

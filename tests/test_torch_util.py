@@ -29,6 +29,8 @@ import ray_tpu_torch  # noqa: E402
 from ray_tpu_torch.util import ActorPool, Queue  # noqa: E402
 from ray_tpu_torch.util.queue import Empty, Full  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 
 # ------------------------------------------------------------------- chaos

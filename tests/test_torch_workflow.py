@@ -27,6 +27,8 @@ import pytest  # noqa: E402
 import ray_tpu_torch  # noqa: E402
 from ray_tpu_torch.cluster_utils import Cluster  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

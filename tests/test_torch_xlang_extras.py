@@ -26,6 +26,8 @@ import pytest  # noqa: E402
 
 import ray_tpu_torch  # noqa: E402
 from tests.test_torch_runtime import port_session_leak_check  # noqa: E402
+from tests.test_torch_runtime import (  # noqa: E402,F401
+    other_workers_jax_sessions_end)
 
 CPP_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "cpp")
